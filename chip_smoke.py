@@ -1,0 +1,395 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of BLEND (``src/repro_torch``) on one GPU.
+
+Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
+It needs one CUDA card and ``nvcc``; it exits non-zero, printing no result,
+without them or outside a checkout.
+
+Phases (each prints JSON lines):
+
+1. set-up: the card's name and power limit, the build of every kernel from
+   ``src/repro_torch/kernels/csrc``, a 7.7 M-posting synthetic lake at
+   Gittables' width and numeric share, and ``repro_torch.connect(lake,
+   backend="bucket")`` over it.  One warm-up pass over the queries records
+   the largest input each kernel wrapper is given on the main path.
+2. kernels: each kernel at those main-path inputs, plus ragged edges, must
+   equal its plain PyTorch version exactly.  Kernel and plain versions are
+   timed per call with CUDA events (L2 flushed before each call), the
+   kernel alone with the profiler, beside the least time the card could
+   take.
+3. main path: every query runs 5 times warm through the bucket session with
+   the launch counters set to 0 just before and read just after; each
+   kernel must have launched.  One more profiled run per query gives the
+   card's busy time.  Every result (ids and scores) must equal a
+   ``sorted``-backend Executor on the card and the port on the CPU.
+
+The last two lines are the card's ``nvidia-smi`` name and power limit and
+``{"ok": true, "device": {...}}``.  Any mismatch raises.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import repro_torch as blend  # noqa: E402  (fails outside a checkout)
+from repro_torch.core.executor import Executor  # noqa: E402
+from repro_torch.core.lake import synthetic_lake  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.bucket_probe import ops as bucket_ops  # noqa: E402
+from repro_torch.kernels.bucket_probe.ref import bucket_probe_ref  # noqa
+from repro_torch.kernels.qcr_score import ops as qcr_ops  # noqa: E402
+from repro_torch.kernels.qcr_score.ref import qcr_segments_ref  # noqa: E402
+from repro_torch.kernels.superkey_filter import ops as sk_ops  # noqa: E402
+from repro_torch.kernels.superkey_filter.ref import \
+    superkey_filter_rows_ref  # noqa: E402
+
+# Gittables' width (max_cols=8) and numeric share (25%), cut to 20k tables
+LAKE = dict(n_tables=20_000, rows=64, cols=8, numeric_cols=2, vocab=200_000,
+            seed=0)
+REPEATS = 5
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor f32 rate
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+
+#: name -> (wrapper module, wrapper attribute, plain version, source, TPU kernel)
+KERNELS = {
+    "bucket_probe": (bucket_ops, "probe", bucket_probe_ref,
+                     "src/repro_torch/kernels/csrc/bucket_probe.cu",
+                     "src/repro/kernels/bucket_probe/kernel.py:34"),
+    "superkey_filter_rows": (
+        sk_ops, "filter_candidates", superkey_filter_rows_ref,
+        "src/repro_torch/kernels/csrc/superkey_filter_rows.cu",
+        "src/repro/kernels/superkey_filter/kernel.py:34"),
+    "qcr_segments": (qcr_ops, "score_segments", qcr_segments_ref,
+                     "src/repro_torch/kernels/csrc/qcr_segments.cu",
+                     "src/repro/kernels/qcr_score/kernel.py:36"),
+}
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def make_queries(lake, seed=1):
+    """Main-path queries at the shapes of configs/blend_gittables.py: 1024
+    values per SC/KW/C probe batch, 256 two-column MC tuples from real rows,
+    h=256."""
+    rng = np.random.default_rng(seed)
+    n_cat = LAKE["cols"] - LAKE["numeric_cols"]
+
+    def cells(n):
+        out = []
+        for _ in range(n):
+            t = lake.tables[int(rng.integers(lake.n_tables))]
+            out.append(t.columns[int(rng.integers(n_cat))]
+                       [int(rng.integers(t.n_rows))])
+        return out
+
+    def tuples(n):
+        out = []
+        for _ in range(n):
+            t = lake.tables[int(rng.integers(lake.n_tables))]
+            r = int(rng.integers(t.n_rows))
+            out.append((t.columns[0][r], t.columns[1][r]))
+        return out
+
+    def targets(n):
+        return [float(x) for x in rng.normal(0, 1, n).round(4)]
+
+    sc = blend.sc(cells(1024))
+    kw = blend.kw(cells(1024))
+    mc = blend.mc(tuples(256))
+    corr = blend.corr(cells(1024), targets(1024), h=256)
+    # one table's own rows: its values as keywords, its first column as
+    # join keys and its first numeric column as the target, so the
+    # correlation seeker runs mask-threaded and the answer is not empty
+    t = lake.tables[int(rng.integers(lake.n_tables))]
+    num = t.columns[LAKE["cols"] - LAKE["numeric_cols"]]
+    sql_expr = blend.kw(t.columns[1][:64], k=50) & blend.corr(
+        t.columns[0], [float(v) for v in num], k=50)
+    return {
+        "sc": sc, "kw": kw, "mc": mc, "corr": corr,
+        "(mc & sc) - mc": (mc & sc) - blend.mc(tuples(64)),
+        "sc | corr": sc | corr,
+        "counter(sc, kw, mc)": blend.counter(sc, kw, mc),
+        "sql": sql_expr.to_sql(),
+    }
+
+
+def run_query(session, q):
+    return session.sql(q) if isinstance(q, str) else session.query(q)
+
+
+def record_kernel_inputs(session, queries):
+    """Warm-up pass that keeps, per kernel, the largest argument set the
+    main path hands its wrapper."""
+    seen = {}
+    originals = {}
+    for name, (mod, attr, *_rest) in KERNELS.items():
+        fn = getattr(mod, attr)
+        originals[name] = fn
+
+        def spy(*args, _name=name, _fn=fn, **kwargs):
+            size = sum(a.numel() for a in args if torch.is_tensor(a))
+            if size >= seen.get(_name, (-1,))[0]:
+                seen[_name] = (size, args, kwargs)
+            return _fn(*args, **kwargs)
+
+        # a wrapper counts into the function its module name is bound to:
+        # while the spy stands in, the warm-up launches count on the spy
+        spy.launches = 0
+        setattr(mod, attr, spy)
+    try:
+        for q in queries.values():
+            run_query(session, q)
+    finally:
+        for name, (mod, attr, *_rest) in KERNELS.items():
+            setattr(mod, attr, originals[name])
+    torch.cuda.synchronize()
+    missing = set(KERNELS) - set(seen)
+    if missing:
+        raise RuntimeError(f"main path never reached {sorted(missing)}")
+    return {name: (args, kwargs) for name, (_, args, kwargs) in seen.items()}
+
+
+def l2_flusher(device):
+    """A function that evicts the card's 50 MB L2 (by writing 128 MB), so a
+    timed call reads its inputs from device memory, as a main-path probe
+    of a resident index mostly does."""
+    buf = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    return buf.zero_
+
+
+def time_ms(fn, flush, iters=20) -> float:
+    """Mean ms of one call on the card's timeline (CUDA events around each
+    call, L2 flushed before each)."""
+    for _ in range(3):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda.synchronize()
+    for start, end in events:
+        flush()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def profiled(fn, iters):
+    """Run ``fn`` ``iters`` times under ``torch.profiler``; returns
+    (wall ms per run, {event key: device ms per run})."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    device = {e.key: e.self_device_time_total / 1e3 / iters
+              for e in prof.key_averages() if e.self_device_time_total > 0}
+    return wall, device
+
+
+def kernel_device_ms(fn, symbol, flush, iters=20):
+    """Device time of one launch of the kernel whose name holds ``symbol``,
+    L2 flushed before each (None when the profiler sees no device time)."""
+    _, device = profiled(lambda: (flush(), fn()), iters)
+    hits = [ms for key, ms in device.items() if symbol in key]
+    return sum(hits) if hits else None
+
+
+def work(name, args, out):
+    """(bytes the function must move, scalar operations) for one call."""
+    if name == "bucket_probe":
+        bh, bp, q, bits = args
+        rows = torch.unique((q.to(torch.int64) + (1 << 31)) >> (32 - bits))
+        width = bh.shape[1]
+        moved = q.numel() * 4 + rows.numel() * width * 8 + out.numel() * 4
+        return moved, out.numel()                  # one compare per element
+    if name == "superkey_filter_rows":
+        sk_lo, sk_hi, q_lo, q_hi = args
+        moved = sk_lo.numel() * 8 + q_lo.numel() * 8 + out.numel()
+        return moved, 5 * out.numel()              # 2 AND, 2 compare, 1 AND
+    n_agree, n_all = args
+    return n_agree.numel() * 8 + out.numel() * 4, 6 * out.numel()
+
+
+def max_abs_err(got, want) -> float:
+    return float((got.to(torch.float64) - want.to(torch.float64)).abs()
+                 .max().item()) if got.numel() else 0.0
+
+
+def ragged_cases(name, args, kwargs):
+    """Edge shapes cut from the main-path inputs: counts that are not a
+    multiple of a warp, single rows, and sentinel queries."""
+    if name == "bucket_probe":
+        bh, bp, q, bits = args
+        q = q[:1000].clone()
+        q[::7] = torch.iinfo(torch.int32).max      # the MISSING sentinel
+        return [((bh, bp, q, bits), {}), ((bh, bp, q[:1].clone(), bits), {})]
+    if name == "superkey_filter_rows":
+        sk_lo, sk_hi, q_lo, q_hi = args
+        cut = lambda a, t, m: a[:t, :m].contiguous()  # noqa: E731
+        return [((cut(sk_lo, 5, 33), cut(sk_hi, 5, 33), q_lo[:5].clone(),
+                  q_hi[:5].clone()), {}),
+                ((cut(sk_lo, 1, 1), cut(sk_hi, 1, 1), q_lo[:1].clone(),
+                  q_hi[:1].clone()), {})]
+    n_agree, n_all = args
+    return [((n_agree[:1000].clone(), n_all[:1000].clone()), kwargs),
+            ((n_agree[:1].clone(), n_all[:1].clone()), kwargs)]
+
+
+def check_kernels(inputs) -> dict:
+    """Phase 2: every kernel equals its plain version, timed."""
+    rows = {}
+    flush = l2_flusher(torch.device("cuda"))
+    for name, (mod, attr, plain, source, replaces) in KERNELS.items():
+        wrapper = getattr(mod, attr)
+        args, kwargs = inputs[name]
+        plain_kwargs = {"min_support": kwargs["min_support"]} \
+            if "min_support" in kwargs else {}
+        for case_args, case_kwargs in [(args, kwargs)] + \
+                ragged_cases(name, args, kwargs):
+            got = wrapper(*case_args, **case_kwargs)
+            want = plain(*case_args, **plain_kwargs)
+            torch.cuda.synchronize()
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at {list(got.shape)}")
+        out = wrapper(*args, **kwargs)
+        want = plain(*args, **plain_kwargs)
+        moved, ops = work(name, args, out)
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / SCALAR_OPS_PER_S * 1e3
+        rows[name] = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None,
+            "max_abs_err": max_abs_err(out, want),
+            "ms": time_ms(lambda: wrapper(*args, **kwargs), flush),
+            "device_ms": kernel_device_ms(lambda: wrapper(*args, **kwargs),
+                                          f"{name}_kernel", flush),
+            "plain_ms": time_ms(lambda: plain(*args, **plain_kwargs), flush),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "equal": True,
+            "shape": [list(a.shape) for a in args if torch.is_tensor(a)],
+            "bytes": moved,
+        }
+        emit({"phase": "kernel", **rows[name]})
+    return rows
+
+
+def run_main_path(session, queries) -> dict:
+    """Phase 3: each query REPEATS times warm, counters read around it."""
+    for mod, attr, *_rest in KERNELS.values():
+        getattr(mod, attr).launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    results, p50 = {}, {}
+    for label, q in queries.items():
+        times = []
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            res = run_query(session, q)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        results[label] = res
+        p50[label] = statistics.median(times)
+    launches = {name: getattr(mod, attr).launches
+                for name, (mod, attr, *_rest) in KERNELS.items()}
+    emit({"phase": "main_path", "p50_ms": p50, "repeats": REPEATS,
+          "launches": launches,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    busy = {}
+    for label, q in queries.items():
+        wall, device = profiled(lambda: run_query(session, q), 1)
+        busy[label] = {"wall_ms": wall, "device_ms": sum(device.values())}
+    emit({"phase": "device_busy", "note": "one profiled run per query",
+          "queries": busy})
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"main path never launched {idle}")
+    return results, launches
+
+
+def check_results(session, results):
+    """Every result equals the sorted backend on the card and the port on
+    the CPU (plain versions), ids and scores exactly."""
+    index = session.index
+    others = {"sorted_cuda": Executor(index, backend="sorted", device="cuda"),
+              "bucket_cpu": Executor(index, backend="bucket", device="cpu")}
+    summary = {}
+    for label, res in results.items():
+        scores = res.scores.cpu()
+        if scores.shape != (index.n_tables,) or \
+                not torch.isfinite(scores).all():
+            raise AssertionError(f"{label}: malformed scores")
+        for other, ex in others.items():
+            rs, _ = ex.run(res.compiled.plan)
+            if not torch.equal(rs.scores.cpu(), scores) or \
+                    [int(t) for t in rs.ids()] != res.ids:
+                raise AssertionError(f"{label} differs from {other}")
+        summary[label] = {"n_ids": len(res.ids), "top": res.ids[:5]}
+    if not any(s["n_ids"] for s in summary.values()):
+        raise AssertionError("every query came back empty")
+    emit({"phase": "check", "equal_to": sorted(others), "queries": summary})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    emit({"phase": "setup", "card": card,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    t0 = time.perf_counter()
+    _build.library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    lake = synthetic_lake(**LAKE)
+    t1 = time.perf_counter()
+    session = blend.connect(lake, backend="bucket")
+    t2 = time.perf_counter()
+    engine = session.executor.engine
+    emit({"phase": "index", "lake": LAKE, "lake_seconds": t1 - t0,
+          "connect_seconds": t2 - t1, "postings": session.index.n_postings,
+          "bucket_bits": session.index.bucket_bits,
+          "bucket_width": engine.config.bucket_width})
+    queries = make_queries(lake)
+    inputs = record_kernel_inputs(session, queries)
+
+    rows = check_kernels(inputs)
+    results, launches = run_main_path(session, queries)
+    check_results(session, results)
+    for name, n in launches.items():
+        rows[name]["launches"] = n
+    print(json.dumps({"kernels": list(rows.values())}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,135 @@
+"""Build and load the hand-written Hopper kernels (``csrc/*.cu``).
+
+Every ``.cu`` source is compiled for ``sm_90a`` by its own ``nvcc`` process
+(all started together), then linked into one shared library with a plain C
+interface that is loaded with ``ctypes``.  The library's file name carries a
+hash of the sources and flags, so it is built at first use and rebuilt
+whenever a source changes; it lives in ``build/kernels/`` at the root of the
+checkout.
+
+No ``--use_fast_math``: ``qcr_segments`` divides, and the port's scores must
+equal the reference's bit for bit, which IEEE ``div.rn.f32`` (nvcc's default)
+gives.
+
+Each C entry point selects the device it is handed, launches on the stream
+it is handed and returns ``cudaGetLastError()``; ``launch`` raises when that
+is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+P = ctypes.c_void_p
+I64 = ctypes.c_int64
+I32 = ctypes.c_int
+F32 = ctypes.c_float
+#: C entry point -> argument types (pointers, sizes, then device and stream)
+SIGNATURES = {
+    "bucket_probe": (P, P, P, P, I64, I64, I32, I32, P),
+    "superkey_filter_rows": (P, P, P, P, P, I64, I64, I32, P),
+    "qcr_segments": (P, P, P, I64, F32, I32, P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sources:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(sources, out: Path):
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / (s.stem + ".o") for s in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o",
+                                   str(o)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        bad = [(s.name, log) for s, p, log in zip(sources, procs, logs)
+               if p.returncode != 0]
+        if bad:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"--- {name}\n{log}" for name, log in bad))
+        tmp_lib = Path(tmp) / out.name
+        link = subprocess.run([nvcc, "-shared", *map(str, objs), "-o",
+                               str(tmp_lib)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
+                               f"{link.stderr}")
+        os.replace(tmp_lib, out)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed."""
+    sources = _sources()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD / f"libblend_kernels_{_digest(sources)}.so"
+    if not lib_path.exists():
+        _compile(sources, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def device_of(name: str, *tensors) -> torch.device:
+    """The one device all ``tensors`` lie on: the CPU selects a kernel's
+    plain version, CUDA the kernel itself; anything else raises."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: inputs lie on several devices {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def require(name: str, ok: bool, what: str):
+    """Input check of a kernel wrapper: raise ``ValueError`` unless ``ok``."""
+    if not ok:
+        raise ValueError(f"{name}: {what}")
+
+
+def launch(name: str, device: torch.device, *args):
+    """Call C entry point ``name`` on ``device`` and PyTorch's current stream
+    there; raise on a non-zero ``cudaError_t``."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(library(), name)(*args, device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
