@@ -23,12 +23,22 @@ Phases (each prints JSON lines):
    card's busy time.  Every result (ids and scores) must equal a
    ``sorted``-backend Executor on the card and the port on the CPU.
 
+4. entry points: the kernel packages' own entry points, which no query
+   runs (``superkey_filter.ops.filter_rows``, ``qcr_score.ops.score``,
+   ``flash_attention.ops.attention``), each driven REPEATS times at real
+   widths with its launch counter set to 0 just before and read just after,
+   then held to its plain version there and at ragged edges (exactly, or
+   within the attention tolerance) and timed as in phase 2, attention also
+   beside PyTorch's own ``scaled_dot_product_attention``.
+
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.  Any mismatch raises.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -46,19 +56,26 @@ from repro_torch.core.lake import synthetic_lake  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bucket_probe import ops as bucket_ops  # noqa: E402
 from repro_torch.kernels.bucket_probe.ref import bucket_probe_ref  # noqa
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa
 from repro_torch.kernels.qcr_score import ops as qcr_ops  # noqa: E402
-from repro_torch.kernels.qcr_score.ref import qcr_segments_ref  # noqa: E402
+from repro_torch.kernels.qcr_score.ref import (  # noqa: E402
+    qcr_score_ref, qcr_segments_ref)
 from repro_torch.kernels.superkey_filter import ops as sk_ops  # noqa: E402
-from repro_torch.kernels.superkey_filter.ref import \
-    superkey_filter_rows_ref  # noqa: E402
+from repro_torch.kernels.superkey_filter.ref import (  # noqa: E402
+    superkey_filter_ref, superkey_filter_rows_ref)
 
 # Gittables' width (max_cols=8) and numeric share (25%), cut to 20k tables
 LAKE = dict(n_tables=20_000, rows=64, cols=8, numeric_cols=2, vocab=200_000,
             seed=0)
 REPEATS = 5
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor f32 rate
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the non-tensor f32
+# rate (also the bound of f32 attention: TF32 would not keep f32 precision)
+# and the dense bf16 tensor-core rate (the bound of bf16 attention)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+TENSOR_BF16_OPS_PER_S = 989e12
+SEED = 0
 
 #: name -> (wrapper module, wrapper attribute, plain version, source, TPU kernel)
 KERNELS = {
@@ -73,6 +90,37 @@ KERNELS = {
                      "src/repro_torch/kernels/csrc/qcr_segments.cu",
                      "src/repro/kernels/qcr_score/kernel.py:36"),
 }
+
+#: the kernels no query runs, reached through their packages' own entry
+#: points (phase 4); same fields as KERNELS
+ENTRY_KERNELS = {
+    "superkey_filter": (sk_ops, "filter_rows", superkey_filter_ref,
+                        "src/repro_torch/kernels/csrc/superkey_filter.cu",
+                        "src/repro/kernels/superkey_filter/kernel.py:58"),
+    "qcr_score": (qcr_ops, "score", qcr_score_ref,
+                  "src/repro_torch/kernels/csrc/qcr_score.cu",
+                  "src/repro/kernels/qcr_score/kernel.py:55"),
+    "flash_attention": (fa_ops, "attention", attention_ref,
+                        "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:54"),
+}
+#: attention widths of the repo's LM configs: (heads, kv heads, head dim)
+YI_6B = (32, 4, 128)          # src/repro/configs/yi_6b.py
+SMOLLM_360M = (15, 5, 64)     # src/repro/configs/smollm_360m.py
+#: (label, dtype, causal, B, Sq, Skv, widths); the first is the main input,
+#: yi-6b at train_4k's length with B cut from 256 to 1
+ATTENTION_CASES = [
+    ("yi-6b S=4096", torch.bfloat16, True, 1, 4096, 4096, YI_6B),
+    ("smollm-360m S=2048", torch.bfloat16, True, 1, 2048, 2048, SMOLLM_360M),
+    ("yi-6b f32 S=1024 non-causal", torch.float32, False, 1, 1024, 1024,
+     YI_6B),
+    ("yi-6b Sq=100 Skv=4096", torch.bfloat16, True, 1, 100, 4096, YI_6B),
+    ("smollm-360m Sq=300 Skv=200", torch.bfloat16, True, 1, 300, 200,
+     SMOLLM_360M),
+    ("yi-6b f32 Sq=1 Skv=777", torch.float32, True, 1, 1, 777, YI_6B),
+]
+ATTENTION_ATOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+QCR_H = 256                   # h_sample of configs/blend_gittables.py
 
 
 def emit(obj):
@@ -354,6 +402,169 @@ def check_results(session, results):
     emit({"phase": "check", "equal_to": sorted(others), "queries": summary})
 
 
+def superkey_digests(index):
+    """One XASH digest per row of the lake: the index's superkeys at the
+    postings of column 0, as int32 bit-views on the card."""
+    first = index.col_id == 0
+    return tuple(torch.from_numpy(np.ascontiguousarray(
+        getattr(index, f)[first]).view(np.int32)).cuda()
+        for f in ("superkey_lo", "superkey_hi"))
+
+
+def qcr_groups(g, h, seed):
+    """Sketch groups as benchmarks/bench_kernels.py makes them (quadrant and
+    query bit uniform on {0, 1}, valid share 0.6), in slices of rows so the
+    host never holds more than one slice of f64 draws."""
+    rng = np.random.default_rng(seed)
+    quad = np.empty((g, h), np.int8)
+    qbit = np.empty((g, h), np.int8)
+    valid = np.empty((g, h), bool)
+    for lo in range(0, g, 1 << 16):
+        hi = min(g, lo + (1 << 16))
+        quad[lo:hi] = rng.integers(0, 2, (hi - lo, h))
+        qbit[lo:hi] = rng.integers(0, 2, (hi - lo, h))
+        valid[lo:hi] = rng.random((hi - lo, h)) < 0.6
+    return tuple(torch.from_numpy(a).cuda() for a in (quad, qbit, valid))
+
+
+def attention_inputs(dtype, b, sq, skv, widths, gen):
+    h, kh, d = widths
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, skv, kh, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, skv, kh, d), generator=gen, device="cuda").to(dtype)
+    return q, k, v
+
+
+def attention_pairs(sq, skv, causal) -> int:
+    """(query, key) pairs the function needs: the visible ones under the
+    causal mask q_pos + (Skv - Sq) >= k_pos; a fully masked row averages
+    every key."""
+    if not causal:
+        return sq * skv
+    pairs = 0
+    for r in range(sq):
+        seen = min(skv, max(0, r + skv - sq + 1))
+        pairs += seen if seen else skv
+    return pairs
+
+
+def entry_work(name, args, kwargs, out):
+    """(bytes the function must move, operations, peak rate) for one call."""
+    if name == "superkey_filter":
+        sk_lo, _, q_lo, _ = args
+        moved = 8 * sk_lo.numel() + 8 * q_lo.numel() + out.numel()
+        return moved, 5 * out.numel(), SCALAR_OPS_PER_S
+    if name == "qcr_score":
+        quad, _, _ = args
+        moved = 3 * quad.numel() + 4 * out.numel()
+        # compare, AND, two counts per entry; five flops per group
+        return moved, 4 * quad.numel() + 5 * out.numel(), SCALAR_OPS_PER_S
+    q, k, v = args
+    b, sq, h, d = q.shape
+    pairs = attention_pairs(sq, k.shape[1], kwargs["causal"])
+    moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    rate = TENSOR_BF16_OPS_PER_S if q.dtype == torch.bfloat16 \
+        else SCALAR_OPS_PER_S
+    return moved, 4 * b * h * d * pairs, rate
+
+
+def entry_cases(name, rows_sk, queries_sk, groups, gen):
+    """Yields (label, args, kwargs) per case, the main input first; each
+    case's tensors are made when it is reached."""
+    if name == "superkey_filter":
+        sk_lo, sk_hi = rows_sk
+        q_lo, q_hi = queries_sk
+        yield "main", (sk_lo, sk_hi, q_lo, q_hi), {}
+        for t, n in ((5, 1000), (1, 1)):
+            yield f"T={t} N={n}", (sk_lo[:n].clone(), sk_hi[:n].clone(),
+                                   q_lo[:t].clone(), q_hi[:t].clone()), {}
+    elif name == "qcr_score":
+        main = qcr_groups(groups, QCR_H, SEED)
+        yield "main", main, {}
+        for g, h in ((1000, QCR_H), (7, 33), (1, 1)):
+            yield f"G={g} H={h}", tuple(a[:g, :h].contiguous()
+                                        for a in main), {}
+    else:
+        for label, dtype, causal, b, sq, skv, widths in ATTENTION_CASES:
+            yield label, attention_inputs(dtype, b, sq, skv, widths, gen), \
+                {"causal": causal}
+
+
+def sdpa_ms(q, k, v, flush) -> float:
+    """PyTorch's own attention on the same inputs, as a yardstick only;
+    its is_causal aligns the mask top-left, so it is timed at Sq = Skv."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+
+
+def run_entry_points(rows_sk, queries_sk, groups) -> dict:
+    """Phase 4: each entry point driven, checked and timed, one at a time,
+    its tensors freed before the next."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain attention is
+    torch.backends.cudnn.allow_tf32 = False         # f32, not TF32
+    flush = l2_flusher(torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+    for name, (mod, attr, plain, source, replaces) in ENTRY_KERNELS.items():
+        cases = entry_cases(name, rows_sk, queries_sk, groups, gen)
+        _, args, kwargs = next(cases)
+        wrapper = getattr(mod, attr)
+        for m, a, *_rest in ENTRY_KERNELS.values():
+            getattr(m, a).launches = 0
+        for _ in range(REPEATS):
+            out = getattr(mod, attr)(*args, **kwargs)
+        torch.cuda.synchronize()
+        launches = wrapper.launches
+        if launches == 0:
+            raise AssertionError(f"entry point never launched {name}")
+
+        errs = {}
+        for label, case_args, case_kwargs in [("main", args, kwargs),
+                                              *cases]:
+            got = wrapper(*case_args, **case_kwargs)
+            want = plain(*case_args, **case_kwargs)
+            torch.cuda.synchronize()
+            if got.dtype != want.dtype or got.shape != want.shape:
+                raise AssertionError(f"{name} {label}: {got.dtype} "
+                                     f"{list(got.shape)} against {want.dtype}"
+                                     f" {list(want.shape)}")
+            errs[label] = max_abs_err(got, want)
+            atol = ATTENTION_ATOL[got.dtype] if name == "flash_attention" \
+                else 0.0
+            if not math.isfinite(errs[label]) or errs[label] > atol or \
+                    (atol == 0.0 and not torch.equal(got, want)):
+                raise AssertionError(f"{name} {label} disagrees with its "
+                                     f"plain version: max |err| "
+                                     f"{errs[label]} > {atol}")
+            del got, want, case_args
+        moved, ops, rate = entry_work(name, args, kwargs, out)
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / rate * 1e3
+        rows[name] = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": errs["main"],
+            "ms": time_ms(lambda: wrapper(*args, **kwargs), flush),
+            "device_ms": kernel_device_ms(lambda: wrapper(*args, **kwargs),
+                                          f"{name}_kernel", flush),
+            "plain_ms": time_ms(lambda: plain(*args, **kwargs), flush),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": sdpa_ms(*args, flush)
+            if name == "flash_attention" else None,
+            "case_max_abs_err": errs,
+            "shape": [list(a.shape) for a in args if torch.is_tensor(a)],
+            "bytes": moved, "operations": ops,
+        }
+        emit({"phase": "entry_point", **rows[name]})
+        del out, args, cases
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -383,6 +594,18 @@ def main() -> int:
     check_results(session, results)
     for name, n in launches.items():
         rows[name]["launches"] = n
+
+    # phase 4 inputs from the smoke lake, then free phases 1-3
+    _, _, q_lo, q_hi = inputs["superkey_filter_rows"][0]
+    queries_sk = (q_lo.clone(), q_hi.clone())
+    rows_sk = superkey_digests(session.index)
+    groups = inputs["qcr_segments"][0][0].numel()
+    del session, engine, inputs, results, q_lo, q_hi
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows.update(run_entry_points(rows_sk, queries_sk, groups))
+    emit({"phase": "entry_points", "seconds": time.perf_counter() - t0})
     print(json.dumps({"kernels": list(rows.values())}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

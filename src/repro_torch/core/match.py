@@ -34,7 +34,7 @@ from repro_torch.kernels.qcr_score import ops as qcr_ops
 from repro_torch.kernels.qcr_score.ref import qcr_segments_ref
 from repro_torch.kernels.superkey_filter import ops as sk_ops
 from repro_torch.kernels.superkey_filter.ref import superkey_filter_rows_ref
-from repro_torch.core.index import hash_keys
+from repro_torch.core.index import hash_keys, resolve_device
 
 BACKENDS = ("sorted", "bucket")
 #: bucket-table widths are padded to a multiple of one warp
@@ -99,10 +99,13 @@ class MatchEngine:
 
     @classmethod
     def from_index(cls, index, *, backend: str = "sorted",
-                   bucket_width: int | None = None, device="cpu"):
+                   bucket_width: int | None = None, device=None):
+        """``device=None`` means CUDA and raises when no card is present;
+        pass ``device="cpu"`` for the plain PyTorch path."""
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {backend!r}")
+        device = resolve_device(device)
         dev = index.device_arrays(device)
         bh = bp = None
         width = 0

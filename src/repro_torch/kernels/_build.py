@@ -7,9 +7,9 @@ hash of the sources and flags, so it is built at first use and rebuilt
 whenever a source changes; it lives in ``build/kernels/`` at the root of the
 checkout.
 
-No ``--use_fast_math``: ``qcr_segments`` divides, and the port's scores must
-equal the reference's bit for bit, which IEEE ``div.rn.f32`` (nvcc's default)
-gives.
+No ``--use_fast_math``: ``qcr_segments`` and ``qcr_score`` divide, and the
+port's scores must equal the reference's bit for bit, which IEEE
+``div.rn.f32`` (nvcc's default) gives.
 
 Each C entry point selects the device it is handed, launches on the stream
 it is handed and returns ``cudaGetLastError()``; ``launch`` raises when that
@@ -42,6 +42,11 @@ SIGNATURES = {
     "bucket_probe": (P, P, P, P, I64, I64, I32, I32, P),
     "superkey_filter_rows": (P, P, P, P, P, I64, I64, I32, P),
     "qcr_segments": (P, P, P, I64, F32, I32, P),
+    "superkey_filter": (P, P, P, P, P, I64, I64, I32, P),
+    "qcr_score": (P, P, P, P, I64, I64, I32, P),
+    # q, k, v, out, B, Sq, Skv, H, K, D, causal, bf16
+    "flash_attention": (P, P, P, P, I64, I64, I64, I64, I64, I32, I32, I32,
+                        I32, P),
 }
 
 

@@ -1,9 +1,34 @@
-"""QCR-score wrapper: the CUDA kernel for CUDA tensors, the plain version
-for CPU tensors.  ``score_segments.launches`` counts kernel launches."""
+"""QCR-score wrappers: the CUDA kernels for CUDA tensors, the plain versions
+for CPU tensors.  ``score.launches`` and ``score_segments.launches`` count
+kernel launches."""
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.qcr_score.ref import qcr_segments_ref
+from repro_torch.kernels.qcr_score.ref import qcr_score_ref, qcr_segments_ref
+
+
+def score(quadrants, qbits, valid):
+    """Grouped QCR: quadrants/qbits int8 [G, H], valid bool [G, H] -> f32
+    [G] (``csrc/qcr_score.cu``)."""
+    name = "qcr_score"
+    dev = _build.device_of(name, quadrants, qbits, valid)
+    need = _build.require
+    need(name, quadrants.dtype == qbits.dtype == torch.int8,
+         "int8 quadrants and qbits")
+    need(name, valid.dtype == torch.bool, "bool valid")
+    need(name, quadrants.dim() == 2
+         and quadrants.shape == qbits.shape == valid.shape,
+         "quadrants/qbits/valid must be one [G, H] shape")
+    if dev.type == "cpu":
+        return qcr_score_ref(quadrants, qbits, valid)
+    need(name, all(t.is_contiguous() for t in (quadrants, qbits, valid)),
+         "contiguous inputs")
+    g, h = quadrants.shape
+    out = torch.empty(g, dtype=torch.float32, device=dev)
+    _build.launch(name, dev, quadrants.data_ptr(), qbits.data_ptr(),
+                  valid.data_ptr(), out.data_ptr(), g, h)
+    score.launches += 1
+    return out
 
 
 def score_segments(n_agree, n_all, *, min_support=3):
@@ -27,3 +52,4 @@ def score_segments(n_agree, n_all, *, min_support=3):
 
 
 score_segments.launches = 0
+score.launches = 0

@@ -1,5 +1,17 @@
-"""Plain PyTorch version of the QCR scoring epilogue."""
+"""Plain PyTorch versions of grouped QCR scoring and its epilogue."""
 import torch
+
+
+def qcr_score_ref(quadrants, qbits, valid):
+    """quadrants/qbits int8 [G, H], valid bool [G, H] -> f32 [G]: per group
+    |2 a - n| / max(n, 1) over the valid entries (a of them agree), 0 where
+    n < 3."""
+    v = valid.to(torch.float32)
+    agree = ((quadrants == qbits) & valid).to(torch.float32)
+    n = v.sum(dim=1)
+    a = agree.sum(dim=1)
+    qcr = torch.abs(2.0 * a - n) / torch.clamp(n, min=1.0)
+    return torch.where(n >= 3, qcr, torch.zeros_like(qcr))
 
 
 def qcr_segments_ref(n_agree, n_all, min_support=3):

@@ -1,7 +1,8 @@
 """repro_torch's CUDA kernels on the card, against their plain versions.
 
-Every test takes the ``cuda`` fixture, which skips without a card.  This file
-imports no JAX, so it runs on the H100 machine as it is:
+Every kernel test takes the ``cuda`` fixture, which skips without a card;
+the default-device test runs everywhere.  This file imports no JAX, so it
+runs on the H100 machine as it is:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
 import numpy as np
@@ -13,12 +14,16 @@ from repro_torch.core.executor import Executor
 from repro_torch.core.hashing import MISSING
 from repro_torch.core.index import build_index, hash_keys
 from repro_torch.core.lake import synthetic_lake
+from repro_torch.core.match import MatchEngine
 from repro_torch.kernels.bucket_probe import ops as bucket_ops
 from repro_torch.kernels.bucket_probe.ref import bucket_probe_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.qcr_score import ops as qcr_ops
-from repro_torch.kernels.qcr_score.ref import qcr_segments_ref
+from repro_torch.kernels.qcr_score.ref import qcr_score_ref, qcr_segments_ref
 from repro_torch.kernels.superkey_filter import ops as sk_ops
-from repro_torch.kernels.superkey_filter.ref import superkey_filter_rows_ref
+from repro_torch.kernels.superkey_filter.ref import (superkey_filter_ref,
+                                                     superkey_filter_rows_ref)
 
 
 @pytest.fixture
@@ -92,3 +97,78 @@ def test_bucket_session_on_card_matches_cpu(cuda):
     after = [f.launches for f in (bucket_ops.probe, sk_ops.filter_candidates,
                                   qcr_ops.score_segments)]
     assert all(b > a for a, b in zip(counts, after))
+
+
+def test_filter_rows_kernel_on_card(cuda):
+    rng = np.random.default_rng(2)
+    # ragged spans and output rows that start off a 16-byte boundary; the
+    # [1:] cut digests exercise the unaligned-load path
+    for t, n, cut in ((5, 1000, 0), (1, 1, 0), (33, 4099, 0), (3, 2048, 0),
+                      (40, 5000, 1)):
+        sk = rng.integers(0, 2 ** 32, (2, n + cut), dtype=np.uint32)
+        pick = rng.integers(cut, n + cut, t)
+        q = sk[:, pick] & rng.integers(0, 2 ** 32, (2, t), dtype=np.uint32)
+        lo, hi = (_t(a.view(np.int32), cuda)[cut:] for a in sk)
+        ql, qh = (_t(a.view(np.int32), cuda) for a in q)
+        before = sk_ops.filter_rows.launches
+        got = sk_ops.filter_rows(lo, hi, ql, qh)
+        torch.cuda.synchronize()
+        assert sk_ops.filter_rows.launches == before + 1
+        assert got.shape == (t, n)
+        assert torch.equal(got, superkey_filter_ref(lo, hi, ql, qh))
+        assert got.any()
+
+
+def test_qcr_score_kernel_on_card(cuda):
+    rng = np.random.default_rng(3)
+    for g, h in ((1000, 256), (7, 33), (1, 1), (300, 48), (5, 1024)):
+        quad = _t(rng.integers(0, 2, (g, h)).astype(np.int8), cuda)
+        qbit = _t(rng.integers(-1, 2, (g, h)).astype(np.int8), cuda)
+        valid = _t(rng.random((g, h)) < 0.6, cuda)
+        before = qcr_ops.score.launches
+        got = qcr_ops.score(quad, qbit, valid)
+        torch.cuda.synchronize()
+        assert qcr_ops.score.launches == before + 1
+        assert torch.equal(got, qcr_score_ref(quad, qbit, valid))
+    ones = torch.ones((4, 64), dtype=torch.int8, device=cuda)
+    assert torch.equal(qcr_ops.score(ones, ones, ones.bool()),
+                       torch.ones(4, device=cuda))
+
+
+# (dtype, causal, B, Sq, Skv, H, K, D): G in {1, 2, 3}, ragged tiles,
+# Sq < Skv, Sq > Skv (fully masked rows), Sq = 1
+CARD_ATTENTION_CASES = [
+    (torch.float32, True, 2, 100, 100, 4, 2, 64),
+    (torch.float32, False, 1, 70, 130, 3, 1, 128),
+    (torch.float32, True, 1, 1, 777, 4, 4, 128),
+    (torch.bfloat16, True, 1, 200, 77, 6, 2, 64),
+    (torch.bfloat16, True, 1, 65, 300, 6, 3, 128),
+    (torch.bfloat16, False, 2, 33, 64, 2, 2, 64),
+]
+
+
+@pytest.mark.parametrize("dtype,causal,b,sq,skv,h,k,d", CARD_ATTENTION_CASES)
+def test_attention_kernel_on_card(cuda, dtype, causal, b, sq, skv, h, k, d):
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in f32
+    gen = torch.Generator(device=cuda).manual_seed(sq * skv + d)
+    q, kk, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+                for shape in ((b, sq, h, d), (b, skv, k, d), (b, skv, k, d)))
+    before = fa_ops.attention.launches
+    got = fa_ops.attention(q, kk, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_ref(q, kk, v, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+def test_match_engine_defaults_to_the_card():
+    idx = build_index(synthetic_lake(n_tables=6, rows=8, vocab=40, seed=2))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MatchEngine.from_index(idx)
+        return
+    eng = MatchEngine.from_index(idx, backend="bucket")
+    assert eng.bucket_hashes.is_cuda
+    assert all(t.is_cuda for t in eng.dev.values() if torch.is_tensor(t))

@@ -41,7 +41,7 @@ def _indexes(seed, bucket_bits=12):
 def test_probe_matches_reference_sorted(backend, seed, bits):
     ref_idx, idx = _indexes(seed, bits)
     ref = RefEngine.from_index(ref_idx, backend="sorted")
-    eng = MatchEngine.from_index(idx, backend=backend)
+    eng = MatchEngine.from_index(idx, backend=backend, device="cpu")
     rng = np.random.default_rng(seed + 100)
     # mix of hits, misses, duplicates + masked padding
     vals = [f"v{int(x)}" for x in rng.integers(0, 60, 24)]
@@ -63,7 +63,7 @@ def test_probe_matches_reference_sorted(backend, seed, bits):
 def test_rowjoin_bloom_qcr_match_reference(backend):
     ref_idx, idx = _indexes(3)
     ref = RefEngine.from_index(ref_idx, backend="sorted")
-    eng = MatchEngine.from_index(idx, backend=backend)
+    eng = MatchEngine.from_index(idx, backend=backend, device="cpu")
     rng = np.random.default_rng(3)
     n = idx.n_postings
     rk = np.concatenate([idx.num_rowkey[rng.integers(0, len(idx.num_rowkey),
@@ -115,10 +115,12 @@ def test_bucket_width_lossless_and_warp_padded():
     _, idx = _indexes(1)
     need = idx.max_bucket_count()
     with pytest.raises(ValueError, match="fullest bucket"):
-        MatchEngine.from_index(idx, backend="bucket", bucket_width=need - 1)
+        MatchEngine.from_index(idx, backend="bucket", bucket_width=need - 1,
+                               device="cpu")
     with pytest.raises(ValueError, match="backend"):
-        MatchEngine.from_index(idx, backend="btree")
-    eng = MatchEngine.from_index(idx, backend="bucket", bucket_width=need + 1)
+        MatchEngine.from_index(idx, backend="btree", device="cpu")
+    eng = MatchEngine.from_index(idx, backend="bucket", bucket_width=need + 1,
+                                 device="cpu")
     assert eng.config.bucket_width % 32 == 0
     assert eng.config.bucket_width >= need + 1
     assert eng.bucket_hashes.shape == (1 << idx.bucket_bits,
