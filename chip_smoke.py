@@ -29,7 +29,11 @@ Phases (each prints JSON lines):
    widths with its launch counter set to 0 just before and read just after,
    then held to its plain version there and at ragged edges (exactly, or
    within the attention tolerance) and timed as in phase 2, attention also
-   beside PyTorch's own ``scaled_dot_product_attention``.
+   beside PyTorch's own ``scaled_dot_product_attention``.  An ``attention``
+   line reads the bf16 tensor-core kernel at the main input (achieved
+   TFLOP/s, share of its bound, its time over SDPA's), at smollm-360m's
+   width at the same length, and its registers, spills and shared memory
+   from the build's ``-Xptxas -v`` report.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.  Any mismatch raises.
@@ -111,6 +115,7 @@ SMOLLM_360M = (15, 5, 64)     # src/repro/configs/smollm_360m.py
 #: yi-6b at train_4k's length with B cut from 256 to 1
 ATTENTION_CASES = [
     ("yi-6b S=4096", torch.bfloat16, True, 1, 4096, 4096, YI_6B),
+    ("smollm-360m S=4096", torch.bfloat16, True, 1, 4096, 4096, SMOLLM_360M),
     ("smollm-360m S=2048", torch.bfloat16, True, 1, 2048, 2048, SMOLLM_360M),
     ("yi-6b f32 S=1024 non-causal", torch.float32, False, 1, 1024, 1024,
      YI_6B),
@@ -120,6 +125,8 @@ ATTENTION_CASES = [
     ("yi-6b f32 Sq=1 Skv=777", torch.float32, True, 1, 1, 777, YI_6B),
 ]
 ATTENTION_ATOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+#: cases after the main input that are also timed beside SDPA
+ATTENTION_TIMED = ("smollm-360m S=4096",)
 QCR_H = 256                   # h_sample of configs/blend_gittables.py
 
 
@@ -499,6 +506,36 @@ def sdpa_ms(q, k, v, flush) -> float:
         qt, kt, vt, is_causal=True, enable_gqa=True), flush)
 
 
+def attention_timing(args, kwargs, flush) -> dict:
+    """Device ms of the attention kernel (CUDA-event ms where the profiler
+    sees no device time) and of SDPA on one case, with the kernel's achieved
+    TFLOP/s and its time over SDPA's."""
+    run = lambda: fa_ops.attention(*args, **kwargs)  # noqa: E731
+    ms = kernel_device_ms(run, "flash_attention_kernel", flush) or \
+        time_ms(run, flush)
+    lib = sdpa_ms(*args, flush)
+    _, ops, _ = entry_work("flash_attention", args, kwargs, None)
+    return {"device_ms": ms, "library_ms": lib, "tflops": ops / ms / 1e9,
+            "over_library": ms / lib}
+
+
+def attention_report(row, timed) -> dict:
+    """The attention kernel at the main input against its bound and SDPA,
+    the timed cases, and the kernels' registers and spills (``-Xptxas -v``)
+    and the bf16 kernel's dynamic shared memory per head dim."""
+    ms = row["device_ms"] or row["ms"]
+    lib = _build.library()
+    return {
+        "main": {"device_ms": ms, "tflops": row["operations"] / ms / 1e9,
+                 "share_of_bound": row["bound_ms"] / ms,
+                 "over_library": ms / row["library_ms"]},
+        "cases": timed,
+        "ptxas": _build.ptxas_usage("flash_attention_kernel"),
+        "tc_smem_bytes": {d: lib.flash_attention_tc_smem(d)
+                          for d in fa_ops.HEAD_DIMS},
+    }
+
+
 def run_entry_points(rows_sk, queries_sk, groups) -> dict:
     """Phase 4: each entry point driven, checked and timed, one at a time,
     its tensors freed before the next."""
@@ -520,7 +557,7 @@ def run_entry_points(rows_sk, queries_sk, groups) -> dict:
         if launches == 0:
             raise AssertionError(f"entry point never launched {name}")
 
-        errs = {}
+        errs, timed = {}, {}
         for label, case_args, case_kwargs in [("main", args, kwargs),
                                               *cases]:
             got = wrapper(*case_args, **case_kwargs)
@@ -538,6 +575,8 @@ def run_entry_points(rows_sk, queries_sk, groups) -> dict:
                 raise AssertionError(f"{name} {label} disagrees with its "
                                      f"plain version: max |err| "
                                      f"{errs[label]} > {atol}")
+            if label in ATTENTION_TIMED:
+                timed[label] = attention_timing(case_args, case_kwargs, flush)
             del got, want, case_args
         moved, ops, rate = entry_work(name, args, kwargs, out)
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
@@ -559,6 +598,8 @@ def run_entry_points(rows_sk, queries_sk, groups) -> dict:
             "bytes": moved, "operations": ops,
         }
         emit({"phase": "entry_point", **rows[name]})
+        if name == "flash_attention":
+            emit({"phase": "attention", **attention_report(rows[name], timed)})
         del out, args, cases
         gc.collect()
         torch.cuda.empty_cache()

@@ -3,9 +3,10 @@
 Every ``.cu`` source is compiled for ``sm_90a`` by its own ``nvcc`` process
 (all started together), then linked into one shared library with a plain C
 interface that is loaded with ``ctypes``.  The library's file name carries a
-hash of the sources and flags, so it is built at first use and rebuilt
-whenever a source changes; it lives in ``build/kernels/`` at the root of the
-checkout.
+hash of the sources, the headers they include (``csrc/*.cuh``) and the
+flags, so it is built at first use and rebuilt whenever one changes; it
+lives in ``build/kernels/`` at the root of the checkout, beside the
+compilers' ``-Xptxas -v`` report of each kernel (``ptxas_usage``).
 
 No ``--use_fast_math``: ``qcr_segments`` and ``qcr_score`` divide, and the
 port's scores must equal the reference's bit for bit, which IEEE
@@ -21,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -31,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P = ctypes.c_void_p
 I64 = ctypes.c_int64
@@ -47,6 +49,8 @@ SIGNATURES = {
     # q, k, v, out, B, Sq, Skv, H, K, D, causal, bf16
     "flash_attention": (P, P, P, P, I64, I64, I64, I64, I64, I32, I32, I32,
                         I32, P),
+    # D -> dynamic shared memory of the bf16 kernel (called directly)
+    "flash_attention_tc_smem": (I32,),
 }
 
 
@@ -67,7 +71,7 @@ def _sources():
 
 def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sorted([*sources, *CSRC.glob("*.cuh")]):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
@@ -87,6 +91,7 @@ def _compile(sources, out: Path):
         if bad:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"--- {name}\n{log}" for name, log in bad))
+        out.with_suffix(".log").write_text("".join(logs))
         tmp_lib = Path(tmp) / out.name
         link = subprocess.run([nvcc, "-shared", *map(str, objs), "-o",
                                str(tmp_lib)], capture_output=True, text=True)
@@ -96,20 +101,52 @@ def _compile(sources, out: Path):
         os.replace(tmp_lib, out)
 
 
+def _lib_path() -> Path:
+    return BUILD / f"libblend_kernels_{_digest(_sources())}.so"
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if its sources changed."""
-    sources = _sources()
     BUILD.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD / f"libblend_kernels_{_digest(sources)}.so"
+    lib_path = _lib_path()
     if not lib_path.exists():
-        _compile(sources, lib_path)
+        _compile(_sources(), lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def parse_ptxas(log: str) -> dict:
+    """``nvcc -Xptxas -v`` output -> {mangled kernel: {"registers",
+    "stack_bytes", "spill_store_bytes", "spill_load_bytes"}}."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = m.group(1)
+            usage[name] = {}
+        elif m := re.search(r"Function properties for (\S+)", line):
+            name = m.group(1) if m.group(1) in usage else None
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes "
+                                      r"spill stores, (\d+) bytes spill loads",
+                                      line)):
+            usage[name].update(stack_bytes=int(m.group(1)),
+                               spill_store_bytes=int(m.group(2)),
+                               spill_load_bytes=int(m.group(3)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
+def ptxas_usage(symbol: str) -> dict:
+    """Registers and spills of the built kernels whose mangled name holds
+    ``symbol``, from the library's ``-Xptxas -v`` report."""
+    library()
+    log = _lib_path().with_suffix(".log").read_text()
+    return {k: v for k, v in parse_ptxas(log).items() if symbol in k}
 
 
 def device_of(name: str, *tensors) -> torch.device:
