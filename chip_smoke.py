@@ -25,15 +25,17 @@ Phases (each prints JSON lines):
 
 4. entry points: the kernel packages' own entry points, which no query
    runs (``superkey_filter.ops.filter_rows``, ``qcr_score.ops.score``,
-   ``flash_attention.ops.attention``), each driven REPEATS times at real
+   ``flash_attention.ops.attention`` once on bf16 and once on f32 inputs,
+   which launch different kernels), each driven REPEATS times at real
    widths with its launch counter set to 0 just before and read just after,
    then held to its plain version there and at ragged edges (exactly, or
    within the attention tolerance) and timed as in phase 2, attention also
-   beside PyTorch's own ``scaled_dot_product_attention``.  An ``attention``
-   line reads the bf16 tensor-core kernel at the main input (achieved
-   TFLOP/s, share of its bound, its time over SDPA's), at smollm-360m's
-   width at the same length, and its registers, spills and shared memory
-   from the build's ``-Xptxas -v`` report.
+   beside PyTorch's own ``scaled_dot_product_attention`` (the backend it
+   ran is named).  An ``attention`` line reads both tensor-core attention
+   kernels at their main inputs (achieved TFLOP/s, share of the bound,
+   time over SDPA's), the bf16 one also at smollm-360m's width at the same
+   length, and the kernels' registers, spills and shared memory from the
+   build's ``-Xptxas -v`` report.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.  Any mismatch raises.
@@ -74,11 +76,15 @@ LAKE = dict(n_tables=20_000, rows=64, cols=8, numeric_cols=2, vocab=200_000,
             seed=0)
 REPEATS = 5
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the non-tensor f32
-# rate (also the bound of f32 attention: TF32 would not keep f32 precision)
-# and the dense bf16 tensor-core rate (the bound of bf16 attention)
+# rate, the dense bf16 tensor-core rate (the bound of bf16 attention) and
+# the dense TF32 rate.  f32 attention is bound by 3xTF32: each f32-accurate
+# product is three TF32 products (a_hi b_hi + a_hi b_lo + a_lo b_hi, with
+# x = x_hi + x_lo split to nearest), so 495 / 3 = 165 TFLOP/s effective
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 TENSOR_BF16_OPS_PER_S = 989e12
+TENSOR_TF32_OPS_PER_S = 495e12
+F32_3XTF32_OPS_PER_S = TENSOR_TF32_OPS_PER_S / 3
 SEED = 0
 
 #: name -> (wrapper module, wrapper attribute, plain version, source, TPU kernel)
@@ -107,14 +113,23 @@ ENTRY_KERNELS = {
     "flash_attention": (fa_ops, "attention", attention_ref,
                         "src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:54"),
+    # the same entry point on f32 inputs, which launch their own kernel
+    "flash_attention_f32": (fa_ops, "attention", attention_ref,
+                            "src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:54"),
 }
+#: entry kernel -> the input dtype of its attention cases
+ATTENTION_DTYPE = {"flash_attention": torch.bfloat16,
+                   "flash_attention_f32": torch.float32}
 #: attention widths of the repo's LM configs: (heads, kv heads, head dim)
 YI_6B = (32, 4, 128)          # src/repro/configs/yi_6b.py
 SMOLLM_360M = (15, 5, 64)     # src/repro/configs/smollm_360m.py
-#: (label, dtype, causal, B, Sq, Skv, widths); the first is the main input,
-#: yi-6b at train_4k's length with B cut from 256 to 1
+#: (label, dtype, causal, B, Sq, Skv, widths); the first of each dtype is
+#: that kernel's main input, yi-6b at train_4k's length with B cut from 256
+#: to 1
 ATTENTION_CASES = [
     ("yi-6b S=4096", torch.bfloat16, True, 1, 4096, 4096, YI_6B),
+    ("yi-6b f32 S=4096", torch.float32, True, 1, 4096, 4096, YI_6B),
     ("smollm-360m S=4096", torch.bfloat16, True, 1, 4096, 4096, SMOLLM_360M),
     ("smollm-360m S=2048", torch.bfloat16, True, 1, 2048, 2048, SMOLLM_360M),
     ("yi-6b f32 S=1024 non-causal", torch.float32, False, 1, 1024, 1024,
@@ -471,7 +486,7 @@ def entry_work(name, args, kwargs, out):
     pairs = attention_pairs(sq, k.shape[1], kwargs["causal"])
     moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     rate = TENSOR_BF16_OPS_PER_S if q.dtype == torch.bfloat16 \
-        else SCALAR_OPS_PER_S
+        else F32_3XTF32_OPS_PER_S
     return moved, 4 * b * h * d * pairs, rate
 
 
@@ -493,17 +508,53 @@ def entry_cases(name, rows_sk, queries_sk, groups, gen):
                                         for a in main), {}
     else:
         for label, dtype, causal, b, sq, skv, widths in ATTENTION_CASES:
-            yield label, attention_inputs(dtype, b, sq, skv, widths, gen), \
-                {"causal": causal}
+            if dtype == ATTENTION_DTYPE[name]:
+                yield label, attention_inputs(dtype, b, sq, skv, widths,
+                                              gen), {"causal": causal}
+
+
+def sdpa_call(q, k, v):
+    """PyTorch's own attention on the same inputs, as a yardstick only;
+    its is_causal aligns the mask top-left, so it is timed at Sq = Skv.
+    bf16 takes SDPA's own choice of backend; f32 is held to its
+    memory-efficient backend (3xTF32 on the tensor cores), with K/V
+    repeated to H heads beforehand where that backend refuses GQA.
+    Returns (call, how K/V reach the H heads)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), "enable_gqa"
+    gqa = "enable_gqa"
+    params = torch.backends.cuda.SDPAParams(qt, kt, vt, None, 0.0, True, True)
+    if not torch.backends.cuda.can_use_efficient_attention(params):
+        g = q.shape[2] // k.shape[2]
+        kt, vt = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
+        gqa = "repeat_interleave outside the timed call"
+
+    def call():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=gqa == "enable_gqa")
+    return call, gqa
 
 
 def sdpa_ms(q, k, v, flush) -> float:
-    """PyTorch's own attention on the same inputs, as a yardstick only;
-    its is_causal aligns the mask top-left, so it is timed at Sq = Skv."""
-    import torch.nn.functional as F
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    return time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+    call, _ = sdpa_call(q, k, v)
+    return time_ms(call, flush)
+
+
+def sdpa_backend(q, k, v, flush) -> dict:
+    """What SDPA ran on these inputs: the device kernels of one profiled
+    call, how K/V reach the H heads, and its own max |err| against the
+    plain version."""
+    call, gqa = sdpa_call(q, k, v)
+    _, device = profiled(lambda: (flush(), call()), 1)
+    flush_kernels = set(profiled(flush, 1)[1])
+    err = max_abs_err(call().transpose(1, 2), attention_ref(q, k, v))
+    return {"kernels": sorted(set(device) - flush_kernels), "gqa": gqa,
+            "max_abs_err": err}
 
 
 def attention_timing(args, kwargs, flush) -> dict:
@@ -519,20 +570,31 @@ def attention_timing(args, kwargs, flush) -> dict:
             "over_library": ms / lib}
 
 
-def attention_report(row, timed) -> dict:
-    """The attention kernel at the main input against its bound and SDPA,
-    the timed cases, and the kernels' registers and spills (``-Xptxas -v``)
-    and the bf16 kernel's dynamic shared memory per head dim."""
+def attention_main(row) -> dict:
+    """One attention kernel at its main input against its bound and SDPA."""
     ms = row["device_ms"] or row["ms"]
+    return {"device_ms": ms, "tflops": row["operations"] / ms / 1e9,
+            "share_of_bound": row["bound_ms"] / ms,
+            "bound_ms": row["bound_ms"], "library_ms": row["library_ms"],
+            "over_library": ms / row["library_ms"],
+            "sdpa": row["sdpa"], "max_abs_err": row["max_abs_err"]}
+
+
+def attention_report(rows, timed) -> dict:
+    """Both attention kernels at their main inputs against their bounds and
+    SDPA, the timed cases, and the kernels' registers and spills
+    (``-Xptxas -v``) and the bf16 kernel's dynamic shared memory per head
+    dim."""
     lib = _build.library()
     return {
-        "main": {"device_ms": ms, "tflops": row["operations"] / ms / 1e9,
-                 "share_of_bound": row["bound_ms"] / ms,
-                 "over_library": ms / row["library_ms"]},
+        "main": attention_main(rows["flash_attention"]),
+        "main_f32": attention_main(rows["flash_attention_f32"]),
         "cases": timed,
         "ptxas": _build.ptxas_usage("flash_attention_kernel"),
         "tc_smem_bytes": {d: lib.flash_attention_tc_smem(d)
                           for d in fa_ops.HEAD_DIMS},
+        "f32_smem_bytes": {d: lib.flash_attention_f32_smem(d)
+                           for d in fa_ops.HEAD_DIMS},
     }
 
 
@@ -543,7 +605,7 @@ def run_entry_points(rows_sk, queries_sk, groups) -> dict:
     torch.backends.cudnn.allow_tf32 = False         # f32, not TF32
     flush = l2_flusher(torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = {}
+    rows, timed = {}, {}
     for name, (mod, attr, plain, source, replaces) in ENTRY_KERNELS.items():
         cases = entry_cases(name, rows_sk, queries_sk, groups, gen)
         _, args, kwargs = next(cases)
@@ -557,7 +619,7 @@ def run_entry_points(rows_sk, queries_sk, groups) -> dict:
         if launches == 0:
             raise AssertionError(f"entry point never launched {name}")
 
-        errs, timed = {}, {}
+        errs = {}
         for label, case_args, case_kwargs in [("main", args, kwargs),
                                               *cases]:
             got = wrapper(*case_args, **case_kwargs)
@@ -568,7 +630,7 @@ def run_entry_points(rows_sk, queries_sk, groups) -> dict:
                                      f"{list(got.shape)} against {want.dtype}"
                                      f" {list(want.shape)}")
             errs[label] = max_abs_err(got, want)
-            atol = ATTENTION_ATOL[got.dtype] if name == "flash_attention" \
+            atol = ATTENTION_ATOL[got.dtype] if name in ATTENTION_DTYPE \
                 else 0.0
             if not math.isfinite(errs[label]) or errs[label] > atol or \
                     (atol == 0.0 and not torch.equal(got, want)):
@@ -586,20 +648,24 @@ def run_entry_points(rows_sk, queries_sk, groups) -> dict:
             "replaces": replaces, "launches": launches,
             "max_abs_err": errs["main"],
             "ms": time_ms(lambda: wrapper(*args, **kwargs), flush),
-            "device_ms": kernel_device_ms(lambda: wrapper(*args, **kwargs),
-                                          f"{name}_kernel", flush),
+            "device_ms": kernel_device_ms(
+                lambda: wrapper(*args, **kwargs),
+                "flash_attention_kernel" if name in ATTENTION_DTYPE
+                else f"{name}_kernel", flush),
             "plain_ms": time_ms(lambda: plain(*args, **kwargs), flush),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": sdpa_ms(*args, flush)
-            if name == "flash_attention" else None,
+            if name in ATTENTION_DTYPE else None,
             "case_max_abs_err": errs,
             "shape": [list(a.shape) for a in args if torch.is_tensor(a)],
             "bytes": moved, "operations": ops,
         }
+        if name in ATTENTION_DTYPE:
+            rows[name]["sdpa"] = sdpa_backend(*args, flush)
         emit({"phase": "entry_point", **rows[name]})
-        if name == "flash_attention":
-            emit({"phase": "attention", **attention_report(rows[name], timed)})
+        if name == "flash_attention_f32":
+            emit({"phase": "attention", **attention_report(rows, timed)})
         del out, args, cases
         gc.collect()
         torch.cuda.empty_cache()

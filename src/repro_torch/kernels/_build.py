@@ -49,8 +49,9 @@ SIGNATURES = {
     # q, k, v, out, B, Sq, Skv, H, K, D, causal, bf16
     "flash_attention": (P, P, P, P, I64, I64, I64, I64, I64, I32, I32, I32,
                         I32, P),
-    # D -> dynamic shared memory of the bf16 kernel (called directly)
+    # D -> dynamic shared memory of the bf16 / f32 kernel (called directly)
     "flash_attention_tc_smem": (I32,),
+    "flash_attention_f32_smem": (I32,),
 }
 
 

@@ -29,10 +29,9 @@ def attention(q, k, v, *, causal=True):
     if dev.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     need(name, all(t.is_contiguous() for t in (q, k, v)), "contiguous inputs")
-    # the bf16 kernel reads q, k and v by TMA, from 16-byte-aligned bases
-    need(name, q.dtype != torch.bfloat16
-         or all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
-         "bf16 inputs must start on a 16-byte boundary")
+    # both kernels read q, k and v by TMA, from 16-byte-aligned bases
+    need(name, all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+         "inputs must start on a 16-byte boundary (TMA reads them)")
     out = torch.empty_like(q)
     _build.launch(name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), B, Sq, Skv, H, Kh, D, int(causal),

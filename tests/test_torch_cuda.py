@@ -137,7 +137,8 @@ def test_qcr_score_kernel_on_card(cuda):
 
 # (dtype, causal, B, Sq, Skv, H, K, D): G in {1, 2, 3, 8}, ragged tiles,
 # Sq < Skv, Sq > Skv (fully masked rows), Sq = 1; the bf16 cases cross the
-# tensor-core kernel's 128-query and 128-key tile edges at both head dims
+# bf16 kernel's 128-query and 128-key tile edges at both head dims, the f32
+# cases the f32 kernel's 128-query and 64-key tile edges
 CARD_ATTENTION_CASES = [
     (torch.float32, True, 2, 100, 100, 4, 2, 64),
     (torch.float32, False, 1, 70, 130, 3, 1, 128),
@@ -150,6 +151,15 @@ CARD_ATTENTION_CASES = [
     (torch.bfloat16, True, 1, 300, 200, 8, 1, 128),
     (torch.bfloat16, True, 1, 1, 777, 4, 4, 64),
     (torch.bfloat16, False, 2, 70, 130, 6, 3, 128),
+    (torch.float32, True, 1, 300, 300, 32, 4, 128),
+    (torch.float32, True, 1, 1000, 1000, 15, 5, 64),
+    (torch.float32, True, 1, 300, 200, 8, 1, 128),
+    (torch.float32, True, 1, 200, 77, 6, 2, 64),
+    (torch.float32, True, 1, 65, 300, 6, 3, 128),
+    (torch.float32, True, 2, 129, 129, 4, 1, 64),
+    (torch.float32, True, 1, 1, 777, 4, 4, 64),
+    (torch.float32, False, 2, 70, 130, 6, 3, 128),
+    (torch.float32, False, 1, 33, 64, 8, 1, 64),
 ]
 
 
@@ -169,19 +179,27 @@ def test_attention_kernel_on_card(cuda, dtype, causal, b, sq, skv, h, k, d):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
-def test_attention_rejects_unaligned_bf16(cuda):
+def _rejects_unaligned(dtype, device):
     # a contiguous view one element into its storage: TMA cannot read it
     b, s, h, d = 1, 8, 2, 64
-    buf = torch.zeros(b * s * h * d + 1, dtype=torch.bfloat16, device=cuda)
+    buf = torch.zeros(b * s * h * d + 1, dtype=dtype, device=device)
     q = buf[1:].view(b, s, h, d)
-    kv = torch.zeros((b, s, h, d), dtype=torch.bfloat16, device=cuda)
-    assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    kv = torch.zeros((b, s, h, d), dtype=dtype, device=device)
+    assert q.is_contiguous() and q.data_ptr() % 16 == buf.element_size()
     before = fa_ops.attention.launches
     with pytest.raises(ValueError, match="16-byte"):
         fa_ops.attention(q, kv, kv)
     with pytest.raises(ValueError, match="16-byte"):
         fa_ops.attention(kv, q, kv)
     assert fa_ops.attention.launches == before
+
+
+def test_attention_rejects_unaligned_bf16(cuda):
+    _rejects_unaligned(torch.bfloat16, cuda)
+
+
+def test_attention_rejects_unaligned_f32(cuda):
+    _rejects_unaligned(torch.float32, cuda)
 
 
 def test_match_engine_defaults_to_the_card():
