@@ -16,7 +16,10 @@ Phases (each prints JSON lines):
    equal its plain PyTorch version exactly.  Kernel and plain versions are
    timed per call with CUDA events (L2 flushed before each call), the
    kernel alone with the profiler, beside the least time the card could
-   take.
+   take.  ``superkey_filter_rows`` is also checked and timed at the widest
+   window the MC stage can give ([256, 1024], the index's digests gathered
+   at seeded random postings), and beside each of its inputs stands a
+   ``fill_`` of the same output bytes (``fill_ms``, the card's store path).
 3. main path: every query runs 5 times warm through the bucket session with
    the launch counters set to 0 just before and read just after; each
    kernel must have launched.  One more profiled run per query gives the
@@ -31,14 +34,18 @@ Phases (each prints JSON lines):
    then held to its plain version there and at ragged edges (exactly, or
    within the attention tolerance) and timed as in phase 2, attention also
    beside PyTorch's own ``scaled_dot_product_attention`` (the backend it
-   ran is named).  An ``attention`` line reads both tensor-core attention
+   ran is named), ``filter_rows`` beside ``fill_ms``.  An ``attention`` line reads both tensor-core attention
    kernels at their main inputs (achieved TFLOP/s, share of the bound,
-   time over SDPA's), the bf16 one also at smollm-360m's width at the same
+   time over SDPA's, event time over event time and device time over
+   device time), the bf16 one also at smollm-360m's width at the same
    length, and the kernels' registers, spills and shared memory from the
    build's ``-Xptxas -v`` report.
 
-The last two lines are the card's ``nvidia-smi`` name and power limit and
-``{"ok": true, "device": {...}}``.  Any mismatch raises.
+A ``replaced_kernels`` line quotes, as constants not measured in the run,
+the device times of the superkey kernels this version replaced
+(``scripts/superkey_ab.py`` times another build against this one in one
+process).  The last two lines are the card's ``nvidia-smi`` name and power
+limit and ``{"ok": true, "device": {...}}``.  Any mismatch raises.
 """
 from __future__ import annotations
 
@@ -143,6 +150,14 @@ ATTENTION_ATOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 #: cases after the main input that are also timed beside SDPA
 ATTENTION_TIMED = ("smollm-360m S=4096",)
 QCR_H = 256                   # h_sample of configs/blend_gittables.py
+#: device ms of the superkey kernels the current ones replaced (commit
+#: e71dedb), read by this script at these output shapes on one NVIDIA H100
+#: 80GB HBM3 at 700.00 W; printed as quoted constants, never as a reading
+REPLACED = {"source": "chip_smoke.py on commit e71dedb, NVIDIA H100 80GB "
+                      "HBM3, 700.00 W",
+            "device_ms": [["superkey_filter", [256, 958_623], 0.1557245],
+                          ["superkey_filter_rows", [256, 128], 0.0022773],
+                          ["superkey_filter_rows", [256, 1024], 0.0032677]]}
 
 
 def emit(obj):
@@ -265,7 +280,10 @@ def time_ms(fn, flush, iters=20) -> float:
 
 def profiled(fn, iters):
     """Run ``fn`` ``iters`` times under ``torch.profiler``; returns
-    (wall ms per run, {event key: device ms per run})."""
+    (wall ms per run, {device event key: device ms per run}).  Only events
+    that ran on the device count: a host operator's own device time
+    repeats its kernels'."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -276,7 +294,9 @@ def profiled(fn, iters):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
     device = {e.key: e.self_device_time_total / 1e3 / iters
-              for e in prof.key_averages() if e.self_device_time_total > 0}
+              for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU and
+              e.self_device_time_total > 0}
     return wall, device
 
 
@@ -286,6 +306,32 @@ def kernel_device_ms(fn, symbol, flush, iters=20):
     _, device = profiled(lambda: (flush(), fn()), iters)
     hits = [ms for key, ms in device.items() if symbol in key]
     return sum(hits) if hits else None
+
+
+def device_kernels(fn, flush, iters=20) -> dict:
+    """{kernel: device ms per call} of every kernel ``fn`` launches, L2
+    flushed before each call, the flush's own kernels left out."""
+    _, device = profiled(lambda: (flush(), fn()), iters)
+    flush_kernels = set(profiled(flush, 1)[1])
+    return {k: ms for k, ms in device.items() if k not in flush_kernels}
+
+
+def fill_yardstick(shape, flush) -> dict:
+    """The card's store path on the bytes of a bool output of ``shape``:
+    ``fill_`` of a tensor allocated outside the timed region (CUDA-event ms
+    and profiler device ms, L2 flushed before each).  A yardstick only: it
+    does not compute the function, and the port never calls it."""
+    out = torch.empty(shape, dtype=torch.bool, device="cuda")
+    fill = lambda: out.fill_(True)  # noqa: E731
+    return {"fill_ms": time_ms(fill, flush),
+            "fill_device_ms": sum(device_kernels(fill, flush).values())}
+
+
+def store_rates(row) -> dict:
+    """GB/s and share of the bound of a superkey row, by device time."""
+    ms = row["device_ms"] or row["ms"]
+    return {"gb_per_s": row["bytes"] / ms / 1e6,
+            "share_of_bound": row["bound_ms"] / ms}
 
 
 def work(name, args, out):
@@ -329,8 +375,46 @@ def ragged_cases(name, args, kwargs):
             ((n_agree[:1].clone(), n_all[:1].clone()), kwargs)]
 
 
-def check_kernels(inputs) -> dict:
-    """Phase 2: every kernel equals its plain version, timed."""
+def wide_rows_input(engine, q_lo, q_hi, m):
+    """``superkey_filter_rows`` at the widest window the MC stage can give
+    (``m_cap_max``): the index's row digests gathered at posting indices
+    drawn from a generator seeded with SEED, against the main path's
+    per-row query digests."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n = engine.dev["sk_lo"].shape[0]
+    pidx = torch.randint(0, n, (q_lo.shape[0], m), generator=gen,
+                         device="cuda")
+    return (engine.dev["sk_lo"][pidx], engine.dev["sk_hi"][pidx],
+            q_lo.clone(), q_hi.clone())
+
+
+def time_rows_shape(args, flush) -> dict:
+    """``superkey_filter_rows`` at one input: checked, timed, with its bound
+    and the store yardstick of its output bytes."""
+    wrapper = sk_ops.filter_candidates
+    out = wrapper(*args)
+    want = superkey_filter_rows_ref(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError("superkey_filter_rows disagrees with its plain "
+                             f"version at {list(out.shape)}")
+    moved, ops = work("superkey_filter_rows", args, out)
+    row = {"shape": list(out.shape), "bytes": moved,
+           "true_share": float(want.float().mean()),
+           "ms": time_ms(lambda: wrapper(*args), flush),
+           "device_ms": kernel_device_ms(lambda: wrapper(*args),
+                                         "superkey_filter_rows_kernel", flush),
+           "plain_ms": time_ms(lambda: superkey_filter_rows_ref(*args),
+                               flush),
+           "bound_ms": max(moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S)
+           * 1e3}
+    return {**row, **store_rates(row),
+            **fill_yardstick(out.shape, flush)}
+
+
+def check_kernels(inputs, wide_rows) -> dict:
+    """Phase 2: every kernel equals its plain version, timed;
+    ``superkey_filter_rows`` also at ``wide_rows``."""
     rows = {}
     flush = l2_flusher(torch.device("cuda"))
     for name, (mod, attr, plain, source, replaces) in KERNELS.items():
@@ -365,6 +449,11 @@ def check_kernels(inputs) -> dict:
             "shape": [list(a.shape) for a in args if torch.is_tensor(a)],
             "bytes": moved,
         }
+        if name == "superkey_filter_rows":
+            rows[name].update(store_rates(rows[name]))
+            rows[name].update(fill_yardstick(out.shape, flush))
+            rows[name]["wide"] = time_rows_shape(wide_rows, flush)
+            rows[name]["ptxas"] = _build.ptxas_usage("superkey_filter")
         emit({"phase": "kernel", **rows[name]})
     return rows
 
@@ -545,38 +634,55 @@ def sdpa_ms(q, k, v, flush) -> float:
     return time_ms(call, flush)
 
 
+def sdpa_device_ms(q, k, v, flush) -> float:
+    """SDPA's device time per call: its kernels, the ones ``sdpa_backend``
+    names, summed."""
+    call, _ = sdpa_call(q, k, v)
+    return sum(device_kernels(call, flush).values())
+
+
 def sdpa_backend(q, k, v, flush) -> dict:
     """What SDPA ran on these inputs: the device kernels of one profiled
     call, how K/V reach the H heads, and its own max |err| against the
     plain version."""
     call, gqa = sdpa_call(q, k, v)
-    _, device = profiled(lambda: (flush(), call()), 1)
-    flush_kernels = set(profiled(flush, 1)[1])
     err = max_abs_err(call().transpose(1, 2), attention_ref(q, k, v))
-    return {"kernels": sorted(set(device) - flush_kernels), "gqa": gqa,
+    return {"kernels": sorted(device_kernels(call, flush, 1)), "gqa": gqa,
             "max_abs_err": err}
 
 
+def over_library(ms, device_ms, library_ms, library_device_ms) -> dict:
+    """The kernel's time over SDPA's, like with like: CUDA-event time over
+    CUDA-event time, and profiler device time over device time."""
+    return {"over_library": ms / library_ms,
+            "over_library_device": device_ms / library_device_ms}
+
+
 def attention_timing(args, kwargs, flush) -> dict:
-    """Device ms of the attention kernel (CUDA-event ms where the profiler
-    sees no device time) and of SDPA on one case, with the kernel's achieved
-    TFLOP/s and its time over SDPA's."""
+    """Event and device ms of the attention kernel and of SDPA on one case,
+    with the kernel's achieved TFLOP/s (by device time) and its time over
+    SDPA's."""
     run = lambda: fa_ops.attention(*args, **kwargs)  # noqa: E731
-    ms = kernel_device_ms(run, "flash_attention_kernel", flush) or \
-        time_ms(run, flush)
-    lib = sdpa_ms(*args, flush)
+    ms = time_ms(run, flush)
+    device_ms = kernel_device_ms(run, "flash_attention_kernel", flush)
+    lib, lib_device = sdpa_ms(*args, flush), sdpa_device_ms(*args, flush)
     _, ops, _ = entry_work("flash_attention", args, kwargs, None)
-    return {"device_ms": ms, "library_ms": lib, "tflops": ops / ms / 1e9,
-            "over_library": ms / lib}
+    return {"ms": ms, "device_ms": device_ms, "library_ms": lib,
+            "library_device_ms": lib_device,
+            "tflops": ops / device_ms / 1e9,
+            **over_library(ms, device_ms, lib, lib_device)}
 
 
 def attention_main(row) -> dict:
     """One attention kernel at its main input against its bound and SDPA."""
-    ms = row["device_ms"] or row["ms"]
-    return {"device_ms": ms, "tflops": row["operations"] / ms / 1e9,
+    ms = row["device_ms"]
+    return {"ms": row["ms"], "device_ms": ms,
+            "tflops": row["operations"] / ms / 1e9,
             "share_of_bound": row["bound_ms"] / ms,
             "bound_ms": row["bound_ms"], "library_ms": row["library_ms"],
-            "over_library": ms / row["library_ms"],
+            "library_device_ms": row["library_device_ms"],
+            **over_library(row["ms"], ms, row["library_ms"],
+                           row["library_device_ms"]),
             "sdpa": row["sdpa"], "max_abs_err": row["max_abs_err"]}
 
 
@@ -662,7 +768,12 @@ def run_entry_points(rows_sk, queries_sk, groups) -> dict:
             "bytes": moved, "operations": ops,
         }
         if name in ATTENTION_DTYPE:
+            rows[name]["library_device_ms"] = sdpa_device_ms(*args, flush)
             rows[name]["sdpa"] = sdpa_backend(*args, flush)
+        if name == "superkey_filter":
+            rows[name].update(store_rates(rows[name]))
+            rows[name].update(fill_yardstick(out.shape, flush))
+            rows[name]["ptxas"] = _build.ptxas_usage("superkey_filter")
         emit({"phase": "entry_point", **rows[name]})
         if name == "flash_attention_f32":
             emit({"phase": "attention", **attention_report(rows, timed)})
@@ -696,14 +807,15 @@ def main() -> int:
     queries = make_queries(lake)
     inputs = record_kernel_inputs(session, queries)
 
-    rows = check_kernels(inputs)
+    _, _, q_lo, q_hi = inputs["superkey_filter_rows"][0]
+    rows = check_kernels(inputs, wide_rows_input(
+        engine, q_lo, q_hi, session.executor.m_cap_max))
     results, launches = run_main_path(session, queries)
     check_results(session, results)
     for name, n in launches.items():
         rows[name]["launches"] = n
 
     # phase 4 inputs from the smoke lake, then free phases 1-3
-    _, _, q_lo, q_hi = inputs["superkey_filter_rows"][0]
     queries_sk = (q_lo.clone(), q_hi.clone())
     rows_sk = superkey_digests(session.index)
     groups = inputs["qcr_segments"][0][0].numel()
@@ -713,6 +825,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rows.update(run_entry_points(rows_sk, queries_sk, groups))
     emit({"phase": "entry_points", "seconds": time.perf_counter() - t0})
+    emit({"phase": "replaced_kernels", "measured_in_this_run": False,
+          **REPLACED})
     print(json.dumps({"kernels": list(rows.values())}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

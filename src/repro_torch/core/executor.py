@@ -47,6 +47,10 @@ class ExecInfo:
     launches: int = 0
 
     @property
+    def total_seconds(self) -> float:
+        return sum(self.node_seconds.values())
+
+    @property
     def overflow(self) -> int:
         return int(sum(int(p) for p in self.overflow_parts))
 
@@ -239,10 +243,10 @@ class Executor:
         if cache is not None:
             raise NotImplementedError(
                 "the query cache is not ported yet (ROADMAP queue A, item "
-                "10: serve/cache.py)")
+                "A5: serve/cache.py)")
         if fused:
             raise NotImplementedError(
-                "fused execution is not ported yet (ROADMAP queue A, item 8: "
+                "fused execution is not ported yet (ROADMAP queue A, item A2: "
                 "core/fused.py)")
         return self._run(plan, optimize, cost_model, sync)
 

@@ -120,6 +120,15 @@ class UnifiedIndex:
     def n_postings(self) -> int:
         return len(self.cell_hash)
 
+    def storage_bytes(self) -> int:
+        """Bytes of the host index: the nine posting arrays plus the
+        numeric view and the bucket offsets (the device copies, whose key
+        forms differ, are not counted)."""
+        core = sum(getattr(self, k).nbytes for k in POSTING_KEYS)
+        views = self.num_perm.nbytes + self.num_rowkey.nbytes + \
+            self.bucket_offsets.nbytes
+        return core + views
+
     def device_arrays(self, device) -> dict:
         """The 15 tensors the seekers consume, on ``device`` (see the module
         docstring for the int32 key forms)."""
@@ -173,6 +182,20 @@ class UnifiedIndex:
     def max_bucket_count(self) -> int:
         """Largest bucket population (the lossless probe-kernel width)."""
         return int(np.diff(self.bucket_offsets).max(initial=0))
+
+    def aos_view(self) -> np.ndarray:
+        """Row-store interleave (hash, t, c, r, sk_lo, sk_hi, quadrant) as
+        an int32 [N, 7] matrix, the 'PostgreSQL layout' of the paper's
+        Fig 5."""
+        out = np.empty((self.n_postings, 7), np.int32)
+        out[:, 0] = self.cell_hash.view(np.int32)
+        out[:, 1] = self.table_id
+        out[:, 2] = self.col_id
+        out[:, 3] = self.row_id
+        out[:, 4] = self.superkey_lo.view(np.int32)
+        out[:, 5] = self.superkey_hi.view(np.int32)
+        out[:, 6] = self.quadrant
+        return out
 
 
 POSTING_KEYS = ("cell_hash", "table_id", "col_id", "row_id", "superkey_lo",

@@ -66,13 +66,14 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path | None = None):
+    return sorted((csrc or CSRC).glob("*.cu"))
 
 
 def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sorted([*sources, *CSRC.glob("*.cuh")]):
+    headers = {c for s in sources for c in s.parent.glob("*.cuh")}
+    for s in sorted([*sources, *headers]):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
@@ -106,19 +107,24 @@ def _lib_path() -> Path:
     return BUILD / f"libblend_kernels_{_digest(_sources())}.so"
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if its sources changed."""
-    BUILD.mkdir(parents=True, exist_ok=True)
-    lib_path = _lib_path()
+def build(csrc: Path, lib_path: Path) -> ctypes.CDLL:
+    """Every source of ``csrc`` compiled into ``lib_path`` (unless that file
+    exists) and loaded, its C entry points bound to ``SIGNATURES``."""
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
     if not lib_path.exists():
-        _compile(_sources(), lib_path)
+        _compile(_sources(csrc), lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed."""
+    return build(CSRC, _lib_path())
 
 
 def parse_ptxas(log: str) -> dict:
@@ -168,11 +174,12 @@ def require(name: str, ok: bool, what: str):
         raise ValueError(f"{name}: {what}")
 
 
-def launch(name: str, device: torch.device, *args):
-    """Call C entry point ``name`` on ``device`` and PyTorch's current stream
-    there; raise on a non-zero ``cudaError_t``."""
+def launch(name: str, device: torch.device, *args, lib=None):
+    """Call C entry point ``name`` of ``lib`` (the port's own library by
+    default) on ``device`` and PyTorch's current stream there; raise on a
+    non-zero ``cudaError_t``."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(library(), name)(*args, device.index, stream)
+    err = getattr(lib or library(), name)(*args, device.index, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")

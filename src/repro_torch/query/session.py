@@ -32,15 +32,16 @@ from repro_torch.query.parse import parse
 from repro_torch.query.rules import prune_dead_nodes, rewrite
 
 _LATER = {
-    "live": "LiveLake on torch (ROADMAP queue A, item 9)",
-    "cache": "the query cache (ROADMAP queue A, item 10)",
-    "shards": "sharding (ROADMAP queue A, item 11)",
-    "wal": "LiveLake on torch with its WAL (ROADMAP queue A, item 9)",
-    "fused": "fused execution (ROADMAP queue A, item 8)",
-    "approx": "the approximate tier (ROADMAP queue A, item 12)",
-    "query_many": "fused batched execution (ROADMAP queue A, item 8)",
-    "restore": "LiveLake snapshots (ROADMAP queue A, item 9)",
-    "recover": "LiveLake crash recovery (ROADMAP queue A, item 9)",
+    "live": "LiveLake on torch (ROADMAP queue A, item A4)",
+    "cache": "the query cache (ROADMAP queue A, item A5)",
+    "shards": "sharding (ROADMAP queue A, item A6)",
+    "wal": "LiveLake on torch with its WAL (ROADMAP queue A, item A4)",
+    "fused": "fused execution (ROADMAP queue A, item A2)",
+    "approx": "the approximate tier (ROADMAP queue A, item A7)",
+    "query_many": "fused batched execution (ROADMAP queue A, item A2)",
+    "restore": "LiveLake snapshots (ROADMAP queue A, item A4)",
+    "recover": "LiveLake crash recovery (ROADMAP queue A, item A4)",
+    "server": "the serving front tier (ROADMAP queue A, item A5)",
 }
 
 
@@ -83,6 +84,9 @@ class QueryResult:
     def applied_rules(self):
         return self.compiled.applied_rules
 
+    def __iter__(self):
+        return iter(self.ids)
+
 
 @dataclass
 class Explain:
@@ -94,12 +98,22 @@ class Explain:
     overflow: int
     ids: list
     launches: int = 0                 # device-program dispatches (ExecInfo)
+    index_shape: dict = field(default_factory=dict)   # Session.index_shape
 
     def __str__(self):
         lines = ["== logical plan =="]
         lines += [self.logical_tree]
         lines.append("== rewrite rules applied ==")
         lines += [f"  - {r}" for r in self.applied_rules] or ["  (none)"]
+        if self.index_shape:
+            s = self.index_shape
+            lines.append("== index ==")
+            lines.append(f"  mode: {s['mode']}   epoch: {s['epoch']}   "
+                         f"segments: {s['segments']}")
+            lines.append(f"  postings/segment: {s['postings_per_segment']}")
+            lines.append(f"  live tables: {s['live_tables']}"
+                         + (f"   tombstoned: {s['tombstoned']}"
+                            if s["tombstoned"] else ""))
         lines.append("== physical order (ranked execution groups) ==")
         if self.physical_order:
             for comb, seekers in self.physical_order.items():
@@ -132,6 +146,17 @@ class Session:
     @property
     def index(self):
         return self.executor.index
+
+    def index_shape(self) -> dict:
+        """Observable index layout (also rendered by ``explain``); a static
+        index is one segment at epoch 0."""
+        idx = self.executor.index
+        return {"mode": "static", "epoch": 0, "segments": 1,
+                "postings_per_segment": [idx.n_postings],
+                "tables_per_segment": [idx.n_tables],
+                "live_tables": idx.n_tables, "tombstoned": [],
+                "table_slots": idx.n_tables, "row_stride": idx.row_stride,
+                "postings": idx.n_postings}
 
     # ---------------------------------------------------------------- compile
     def compile(self, q, top: int | None = None) -> Compiled:
@@ -195,10 +220,16 @@ class Session:
 
     # ---------------------------------------------------------------- explain
     def explain(self, q, top: int | None = None, optimize: bool = True,
-                execute: bool = True) -> Explain:
+                execute: bool = True, fused: bool = False,
+                server: dict | None = None) -> Explain:
         """Compile (and by default run) ``q``; returns the transcript:
-        rendered logical tree, applied rewrite rules, ranked physical order,
-        and per-node timings from the actual execution."""
+        rendered logical tree, applied rewrite rules, the index's shape,
+        ranked physical order, and per-node timings from the actual
+        execution."""
+        if fused:
+            _not_ported("fused")
+        if server:
+            _not_ported("server")
         compiled = q if isinstance(q, Compiled) else self.compile(q, top=top)
         if compiled.logical is not None:
             tree = compiled.logical.render()
@@ -221,7 +252,8 @@ class Session:
                        physical_order=ranked, exec_order=list(info.order),
                        node_seconds=dict(info.node_seconds),
                        overflow=info.overflow if execute else 0, ids=ids,
-                       launches=info.launches)
+                       launches=info.launches,
+                       index_shape=self.index_shape())
 
 
 def connect(lake, cost_model: CostModel | None = None, live: bool = False,

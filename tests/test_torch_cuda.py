@@ -15,6 +15,7 @@ from repro_torch.core.hashing import MISSING
 from repro_torch.core.index import build_index, hash_keys
 from repro_torch.core.lake import synthetic_lake
 from repro_torch.core.match import MatchEngine
+from repro_torch.kernels import _build
 from repro_torch.kernels.bucket_probe import ops as bucket_ops
 from repro_torch.kernels.bucket_probe.ref import bucket_probe_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -56,16 +57,50 @@ def test_bucket_probe_kernel_on_card(cuda):
             assert torch.equal(got, bucket_probe_ref(*args, kq, 9))
 
 
+def _digests(rng, shape, cut, device):
+    """Random int32 digests of ``shape`` on the card, as a contiguous view
+    ``cut`` elements into its storage (not 16-byte aligned for cut 1..3)."""
+    flat = rng.integers(0, 2 ** 32, int(np.prod(shape)) + cut,
+                        dtype=np.uint32)
+    return _t(flat.view(np.int32), device)[cut:].view(shape)
+
+
+def _queries(rng, lo, hi, t, device):
+    """[T] query digests (lo, hi), each the bits of one row digest with some
+    cleared, so that every query holds for at least that row; for [T, M]
+    rows query t takes its row from row t."""
+    lo_np, hi_np = (a.cpu().numpy().reshape(-1).view(np.uint32)
+                    for a in (lo, hi))
+    if lo.dim() == 2:
+        pick = np.arange(t) * lo.shape[1] + rng.integers(0, lo.shape[1], t)
+    else:
+        pick = rng.integers(0, lo.numel(), t)
+    return tuple(_t((a[pick] & rng.integers(0, 2 ** 32, t, dtype=np.uint32))
+                    .view(np.int32), device) for a in (lo_np, hi_np))
+
+
+# (T, M, cut): M = 1..15 (mod 16), rows that cross the 16-element groups,
+# tiny and wide windows (m_cap_max = 1024), digests off 16-byte alignment
+CARD_ROWS_CASES = [(5, 33, 0), (24, 128, 0), (256, 1024, 0), (256, 128, 0),
+                   (1, 1, 0), (3, 7, 0), (9, 15, 0), (2, 16, 0), (4, 17, 0),
+                   (256, 1024, 1), (31, 77, 3), (256, 1009, 1)] + \
+    [(3 + r, 64 + r, 0) for r in range(1, 16)]
+
+
 def test_superkey_kernel_on_card(cuda):
     rng = np.random.default_rng(0)
-    for t, m in ((5, 33), (24, 128), (256, 1024)):
-        sk = rng.integers(0, 2 ** 32, (2, t, m), dtype=np.uint32)
-        q = sk[:, :, 0] & rng.integers(0, 2 ** 32, (2, t), dtype=np.uint32)
-        arrays = [_t(a.view(np.int32), cuda) for a in (*sk, *q)]
-        got = sk_ops.filter_candidates(*arrays)
+    for t, m, cut in CARD_ROWS_CASES:
+        sk_lo, sk_hi = (_digests(rng, (t, m), cut, cuda) for _ in range(2))
+        q_lo, q_hi = _queries(rng, sk_lo, sk_hi, t, cuda)
+        assert sk_lo.is_contiguous() and sk_lo.data_ptr() % 16 == 4 * cut
+        before = sk_ops.filter_candidates.launches
+        got = sk_ops.filter_candidates(sk_lo, sk_hi, q_lo, q_hi)
         torch.cuda.synchronize()
-        assert torch.equal(got, superkey_filter_rows_ref(*arrays))
-        assert got.any()
+        assert sk_ops.filter_candidates.launches == before + 1
+        assert got.is_contiguous() and got.stride() == (m, 1)
+        assert torch.equal(got, superkey_filter_rows_ref(sk_lo, sk_hi, q_lo,
+                                                         q_hi)), (t, m, cut)
+        assert got.any(dim=1).all()
 
 
 def test_qcr_kernel_on_card(cuda):
@@ -99,24 +134,53 @@ def test_bucket_session_on_card_matches_cpu(cuda):
     assert all(b > a for a, b in zip(counts, after))
 
 
+# (T, N, cut): N = 1..15 (mod 16) across several 480-row warp tiles, N
+# below one tile and below one 16-byte chunk, T = 1 and T not a multiple
+# of anything the kernel tiles by, digests cut at [1:] and [3:]
+CARD_FILTER_CASES = [(5, 1000, 0), (1, 1, 0), (33, 4099, 0), (3, 2048, 0),
+                     (40, 5000, 1), (40, 5000, 3), (7, 1001, 1), (7, 1001, 3),
+                     (5, 100, 0), (9, 495, 0), (2, 496, 0), (4, 497, 0),
+                     (17, 1, 0), (33, 5, 0), (40, 15, 0), (5, 16, 0),
+                     (6, 17, 0), (1, 958, 0), (1, 5000, 3), (257, 777, 0),
+                     (256, 20_001, 0)] + \
+    [(7 + r, 1024 + r, 0) for r in range(1, 16)]
+
+
 def test_filter_rows_kernel_on_card(cuda):
     rng = np.random.default_rng(2)
-    # ragged spans and output rows that start off a 16-byte boundary; the
-    # [1:] cut digests exercise the unaligned-load path
-    for t, n, cut in ((5, 1000, 0), (1, 1, 0), (33, 4099, 0), (3, 2048, 0),
-                      (40, 5000, 1)):
-        sk = rng.integers(0, 2 ** 32, (2, n + cut), dtype=np.uint32)
-        pick = rng.integers(cut, n + cut, t)
-        q = sk[:, pick] & rng.integers(0, 2 ** 32, (2, t), dtype=np.uint32)
-        lo, hi = (_t(a.view(np.int32), cuda)[cut:] for a in sk)
-        ql, qh = (_t(a.view(np.int32), cuda) for a in q)
+    for t, n, cut in CARD_FILTER_CASES:
+        lo, hi = (_digests(rng, (n,), cut, cuda) for _ in range(2))
+        ql, qh = _queries(rng, lo, hi, t, cuda)
+        assert lo.is_contiguous() and lo.data_ptr() % 16 == 4 * cut
         before = sk_ops.filter_rows.launches
         got = sk_ops.filter_rows(lo, hi, ql, qh)
         torch.cuda.synchronize()
         assert sk_ops.filter_rows.launches == before + 1
-        assert got.shape == (t, n)
-        assert torch.equal(got, superkey_filter_ref(lo, hi, ql, qh))
-        assert got.any()
+        assert got.dtype == torch.bool and got.shape == (t, n)
+        assert got.is_contiguous() and got.stride() == (n, 1)
+        assert torch.equal(got, superkey_filter_ref(lo, hi, ql, qh)), \
+            (t, n, cut)
+        assert got.any(dim=1).all()
+
+
+def test_filter_rows_kernel_at_unaligned_output(cuda):
+    """The kernel itself at an output 1..15 bytes off a 16-byte boundary
+    (the wrapper always hands it a fresh aligned tensor): the array's head
+    and tail and every row seam are assembled byte by byte."""
+    rng = np.random.default_rng(4)
+    for t, n in ((33, 4099), (5, 7), (3, 1000), (1, 20)):
+        lo, hi = (_digests(rng, (n,), 0, cuda) for _ in range(2))
+        ql, qh = _queries(rng, lo, hi, t, cuda)
+        want = superkey_filter_ref(lo, hi, ql, qh)
+        for off in (1, 7, 15):
+            buf = torch.zeros(t * n + 32, dtype=torch.uint8, device=cuda)
+            _build.launch("superkey_filter", buf.device, lo.data_ptr(),
+                          hi.data_ptr(), ql.data_ptr(), qh.data_ptr(),
+                          buf.data_ptr() + off, t, n)
+            torch.cuda.synchronize()
+            got = buf[off:off + t * n].view(t, n).bool()
+            assert torch.equal(got, want), (t, n, off)
+            assert not buf[:off].any() and not buf[off + t * n:].any()
 
 
 def test_qcr_score_kernel_on_card(cuda):

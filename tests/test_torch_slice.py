@@ -189,21 +189,91 @@ def test_later_slices_raise_not_implemented(sessions):
     lake, _, ports = sessions
     port = ports["sorted"]
     expr = blend.kw(["tok_1"])
-    for opts in ({"live": True}, {"cache": True}, {"shards": 2},
-                 {"wal": "lake.wal"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for opts, item in (({"live": True}, "A4"), ({"cache": True}, "A5"),
+                       ({"shards": 2}, "A6"), ({"wal": "lake.wal"}, "A4")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             blend.connect(lake, device="cpu", **opts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A2"):
         port.query(expr, fused=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
         port.query(expr, approx=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A2"):
         port.query_many([expr])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A2"):
         port.executor.run(port.compile(expr).plan, fused=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A5"):
+        port.executor.run(port.compile(expr).plan, cache=object())
     for fn in (blend.restore, blend.recover):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*A4"):
             fn("snap")
+
+
+# ------------------------------------ the static-index members of the surface
+
+def _same_query():
+    expr = blend.sc(["tok_1", "tok_2", "tok_3"], k=50) | blend.kw(["tok_9"],
+                                                                  k=50)
+    ref_expr = ref_blend.sc(["tok_1", "tok_2", "tok_3"], k=50) | \
+        ref_blend.kw(["tok_9"], k=50)
+    return expr, ref_expr
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_query_result_iterates_like_reference(sessions, backend):
+    _, ref, ports = sessions
+    expr, ref_expr = _same_query()
+    got, want = ports[backend].query(expr), ref.query(ref_expr)
+    assert list(got) == list(want) and list(got) == got.ids and got.ids
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_exec_info_total_seconds(sessions, backend):
+    _, ref, ports = sessions
+    expr, ref_expr = _same_query()
+    info = ports[backend].query(expr).info
+    ref_info = ref.query(ref_expr).info
+    assert info.total_seconds == sum(info.node_seconds.values()) > 0
+    assert sorted(info.node_seconds) == sorted(ref_info.node_seconds)
+
+
+def test_storage_bytes_and_aos_view_match_reference(sessions):
+    _, ref, ports = sessions
+    port_idx, ref_idx = ports["sorted"].index, ref.executor.index
+    assert port_idx.storage_bytes() == ref_idx.storage_bytes() > 0
+    got, want = port_idx.aos_view(), ref_idx.aos_view()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_index_shape_and_explain_index_block_match_reference(sessions,
+                                                            backend):
+    _, ref, ports = sessions
+    port = ports[backend]
+    assert port.index_shape() == ref.index_shape()
+    ex, ref_ex = port.explain(README_SQL), ref.explain(README_SQL)
+    assert ex.index_shape == ref_ex.index_shape == ref.index_shape()
+
+    def block(text):
+        lines = text.splitlines()
+        start = lines.index("== index ==")
+        end = next(i for i in range(start + 1, len(lines))
+                   if lines[i].startswith("== "))
+        return lines[start - 1:end + 1]   # with its neighbouring headers
+
+    got, want = block(str(ex)), block(str(ref_ex))
+    assert got == want and len(got) > 3
+    assert got[-1] == "== physical order (ranked execution groups) =="
+
+
+def test_explain_fused_and_server_raise_not_implemented(sessions):
+    _, _, ports = sessions
+    port = ports["sorted"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A2"):
+        port.explain(README_SQL, fused=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A5"):
+        port.explain(README_SQL, server={"x": 1})
+    assert port.explain(README_SQL, fused=False, server=None).ids
 
 
 def test_connect_without_card_raises(monkeypatch):
