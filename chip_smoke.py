@@ -10,8 +10,10 @@ Phases (each prints JSON lines):
 1. set-up: the card's name and power limit, the build of every kernel from
    ``src/repro_torch/kernels/csrc``, a 7.7 M-posting synthetic lake at
    Gittables' width and numeric share, and ``repro_torch.connect(lake,
-   backend="bucket")`` over it.  One warm-up pass over the queries records
-   the largest input each kernel wrapper is given on the main path.
+   backend="bucket")`` over it.  One warm-up pass over the queries, unfused
+   through the session and fused through a throwaway executor on the same
+   index (each query, then all of them as one ``query_many`` batch),
+   records the largest input each kernel wrapper is given on either path.
 2. kernels: each kernel at those main-path inputs, plus ragged edges, must
    equal its plain PyTorch version exactly.  Kernel and plain versions are
    timed per call with CUDA events (L2 flushed before each call), the
@@ -25,6 +27,15 @@ Phases (each prints JSON lines):
    kernel must have launched.  One more profiled run per query gives the
    card's busy time.  Every result (ids and scores) must equal a
    ``sorted``-backend Executor on the card and the port on the CPU.
+3b. fused path: the same queries through ``session.query(q, fused=True)``
+   (one CUDA graph per seeker group and one per plan's combiner DAG),
+   warmed once, then 5 timed runs each with the counters set to 0 just
+   before and read just after (each query-path kernel must have launched
+   on replay, and no program may be captured), ``ExecInfo.launches``
+   beside phase 3's, peak memory, all eight as one ``query_many`` batch,
+   and one profiled run per query, whose trace must show each query-path
+   kernel as many times as the programs ticked its counter.  Every fused
+   and batched result must equal phase 3's, ids and scores, bit for bit.
 
 4. entry points: the kernel packages' own entry points, which no query
    runs (``superkey_filter.ops.filter_rows``, ``qcr_score.ops.score``,
@@ -64,6 +75,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import repro_torch as blend  # noqa: E402  (fails outside a checkout)
+from repro_torch import obs  # noqa: E402
+from repro_torch.core import seekers as seek  # noqa: E402
 from repro_torch.core.executor import Executor  # noqa: E402
 from repro_torch.core.lake import synthetic_lake  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -217,13 +230,19 @@ def make_queries(lake, seed=1):
     }
 
 
-def run_query(session, q):
+def run_query(session, q, fused=False):
+    if fused:
+        return session.query(q, fused=True)
     return session.sql(q) if isinstance(q, str) else session.query(q)
 
 
 def record_kernel_inputs(session, queries):
     """Warm-up pass that keeps, per kernel, the largest argument set the
-    main path hands its wrapper."""
+    main path hands its wrapper, unfused through ``session`` and fused
+    (each query, then all of them as one ``query_many``) through a
+    throwaway bucket executor on the same index (so that no recording
+    wrapper stands in while the session's programs are captured).
+    Returns (largest on either path, largest unfused)."""
     seen = {}
     originals = {}
     for name, (mod, attr, *_rest) in KERNELS.items():
@@ -231,8 +250,11 @@ def record_kernel_inputs(session, queries):
         originals[name] = fn
 
         def spy(*args, _name=name, _fn=fn, **kwargs):
+            # a call under graph capture runs nothing, so its arguments
+            # hold no values; each program's eager warm-up call is kept
             size = sum(a.numel() for a in args if torch.is_tensor(a))
-            if size >= seen.get(_name, (-1,))[0]:
+            if (not torch.cuda.is_current_stream_capturing() and
+                    size >= seen.get(_name, (-1,))[0]):
                 seen[_name] = (size, args, kwargs)
             return _fn(*args, **kwargs)
 
@@ -243,14 +265,24 @@ def record_kernel_inputs(session, queries):
     try:
         for q in queries.values():
             run_query(session, q)
+        unfused = dict(seen)
+        throwaway = blend.Session(Executor(session.index, backend="bucket"))
+        for q in queries.values():
+            run_query(throwaway, q, fused=True)
+        # all eight as one batch: it groups same-kind seekers across the
+        # queries, so its groups are the widest the fused path builds
+        throwaway.query_many(list(queries.values()))
+        torch.cuda.synchronize()
+        del throwaway
     finally:
         for name, (mod, attr, *_rest) in KERNELS.items():
             setattr(mod, attr, originals[name])
     torch.cuda.synchronize()
-    missing = set(KERNELS) - set(seen)
+    missing = set(KERNELS) - set(unfused)
     if missing:
         raise RuntimeError(f"main path never reached {sorted(missing)}")
-    return {name: (args, kwargs) for name, (_, args, kwargs) in seen.items()}
+    return tuple({name: (args, kwargs) for name, (_, args, kwargs)
+                  in found.items()} for found in (seen, unfused))
 
 
 def l2_flusher(device):
@@ -278,11 +310,10 @@ def time_ms(fn, flush, iters=20) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def profiled(fn, iters):
+def device_events(fn, iters):
     """Run ``fn`` ``iters`` times under ``torch.profiler``; returns
-    (wall ms per run, {device event key: device ms per run}).  Only events
-    that ran on the device count: a host operator's own device time
-    repeats its kernels'."""
+    (wall ms per run, the averaged events that ran on the device).  Only
+    those count: a host operator's own device time repeats its kernels'."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -293,11 +324,17 @@ def profiled(fn, iters):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
-    device = {e.key: e.self_device_time_total / 1e3 / iters
-              for e in prof.key_averages()
-              if e.device_type != DeviceType.CPU and
-              e.self_device_time_total > 0}
-    return wall, device
+    return wall, [e for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU and
+                  e.self_device_time_total > 0]
+
+
+def profiled(fn, iters):
+    """(wall ms per run, {device event key: device ms per run}) of ``fn``
+    run ``iters`` times under the profiler (``device_events``)."""
+    wall, events = device_events(fn, iters)
+    return wall, {e.key: e.self_device_time_total / 1e3 / iters
+                  for e in events}
 
 
 def kernel_device_ms(fn, symbol, flush, iters=20):
@@ -460,8 +497,7 @@ def check_kernels(inputs, wide_rows) -> dict:
 
 def run_main_path(session, queries) -> dict:
     """Phase 3: each query REPEATS times warm, counters read around it."""
-    for mod, attr, *_rest in KERNELS.values():
-        getattr(mod, attr).launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     results, p50 = {}, {}
     for label, q in queries.items():
@@ -473,8 +509,7 @@ def run_main_path(session, queries) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         results[label] = res
         p50[label] = statistics.median(times)
-    launches = {name: getattr(mod, attr).launches
-                for name, (mod, attr, *_rest) in KERNELS.items()}
+    launches = kernel_launches()
     emit({"phase": "main_path", "p50_ms": p50, "repeats": REPEATS,
           "launches": launches,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
@@ -487,7 +522,119 @@ def run_main_path(session, queries) -> dict:
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"main path never launched {idle}")
-    return results, launches
+    return results, launches, p50
+
+
+def kernel_launches() -> dict:
+    return {name: getattr(mod, attr).launches
+            for name, (mod, attr, *_rest) in KERNELS.items()}
+
+
+def reset_launches():
+    for mod, attr, *_rest in KERNELS.values():
+        getattr(mod, attr).launches = 0
+
+
+def same_result(got, want) -> bool:
+    return got.ids == want.ids and torch.equal(got.scores, want.scores)
+
+
+def run_fused_path(session, queries, unfused) -> dict:
+    """Phase 3b: each query on the fused path, warmed once, then REPEATS
+    timed runs with the counters read around them; all of them as one
+    ``query_many`` batch; one profiled run per query.  ``unfused`` is phase
+    3's output: every fused result must equal its result."""
+    results, launches_unfused, p50_unfused = unfused
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for q in queries.values():
+        run_query(session, q, fused=True)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    programs = dict(seek.TRACE_COUNTS)
+    reset_launches()
+    p50, launches, bad = {}, {}, []
+    for label, q in queries.items():
+        times = []
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            res = run_query(session, q, fused=True)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        p50[label] = {"fused": statistics.median(times),
+                      "unfused": p50_unfused[label]}
+        launches[label] = {"fused": res.info.launches,
+                           "unfused": results[label].info.launches}
+        if not same_result(res, results[label]):
+            bad.append(label)
+    kernels = kernel_launches()
+    captures = sum(seek.TRACE_COUNTS.values()) - sum(programs.values())
+    emit({"phase": "fused", "p50_ms": p50, "repeats": REPEATS,
+          "exec_launches": launches, "kernel_launches": kernels,
+          "unfused_kernel_launches": launches_unfused,
+          "captures_in_timed_runs": captures,
+          "programs": len(session.executor.programs),
+          "warm_up_seconds": warm_s,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "memory_reserved_bytes": torch.cuda.memory_reserved()})
+
+    batch = list(queries.values())
+    before = sum(seek.TRACE_COUNTS.values())
+    session.query_many(batch)          # builds the batch's own programs
+    torch.cuda.synchronize()
+    batch_programs = sum(seek.TRACE_COUNTS.values()) - before
+    times = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        outs = session.query_many(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    bad += [f"query_many {label}" for label, res in zip(queries, outs)
+            if not same_result(res, results[label])]
+    reg = obs.enable()
+    session.query_many(batch)
+    torch.cuda.synchronize()
+    device_programs = reg.counter("exec.launches").value
+    obs.disable()
+    batch_captures = sum(seek.TRACE_COUNTS.values()) - before - \
+        batch_programs
+    emit({"phase": "fused_batch", "queries": len(batch),
+          "p50_ms": statistics.median(times), "repeats": REPEATS,
+          "device_programs": device_programs,
+          "exec_launches": [res.info.launches for res in outs],
+          "programs_built_in_warm_up": batch_programs,
+          "captures_in_timed_runs": batch_captures})
+
+    # the launches the card ran, read from the trace, beside the ones the
+    # programs ticked on replay in the same runs
+    reset_launches()
+    busy, traced = {}, dict.fromkeys(KERNELS, 0)
+    for label, q in queries.items():
+        wall, events = device_events(
+            lambda: run_query(session, q, fused=True), 1)
+        busy[label] = {"wall_ms": wall, "device_ms": sum(
+            e.self_device_time_total for e in events) / 1e3}
+        for name in KERNELS:
+            traced[name] += sum(e.count for e in events
+                                if f"{name}_kernel" in e.key)
+    ticked = kernel_launches()
+    emit({"phase": "fused_device_busy", "note": "one profiled run per query",
+          "queries": busy, "kernel_launches_traced": traced,
+          "kernel_launches_ticked": ticked})
+    if bad:
+        raise AssertionError(f"fused results differ from phase 3: {bad}")
+    if captures or batch_captures:
+        raise AssertionError(f"{captures} + {batch_captures} programs "
+                             f"captured in timed runs")
+    idle = [name for name, n in traced.items() if n == 0]
+    if idle:
+        raise AssertionError(f"no launch of {idle} in the fused path's "
+                             f"trace")
+    if traced != ticked:
+        raise AssertionError(f"fused launches traced {traced} but ticked "
+                             f"{ticked}")
+    return kernels
 
 
 def check_results(session, results):
@@ -805,21 +952,26 @@ def main() -> int:
           "bucket_bits": session.index.bucket_bits,
           "bucket_width": engine.config.bucket_width})
     queries = make_queries(lake)
-    inputs = record_kernel_inputs(session, queries)
+    inputs, unfused_inputs = record_kernel_inputs(session, queries)
 
-    _, _, q_lo, q_hi = inputs["superkey_filter_rows"][0]
+    # the wide rows case and phase 4 keep the unfused MC stage's 256 query
+    # digests and segment space
+    _, _, q_lo, q_hi = unfused_inputs["superkey_filter_rows"][0]
     rows = check_kernels(inputs, wide_rows_input(
         engine, q_lo, q_hi, session.executor.m_cap_max))
-    results, launches = run_main_path(session, queries)
+    unfused = run_main_path(session, queries)
+    results, launches, _ = unfused
     check_results(session, results)
+    fused_launches = run_fused_path(session, queries, unfused)
     for name, n in launches.items():
         rows[name]["launches"] = n
+        rows[name]["fused_launches"] = fused_launches[name]
 
     # phase 4 inputs from the smoke lake, then free phases 1-3
     queries_sk = (q_lo.clone(), q_hi.clone())
     rows_sk = superkey_digests(session.index)
-    groups = inputs["qcr_segments"][0][0].numel()
-    del session, engine, inputs, results, q_lo, q_hi
+    groups = unfused_inputs["qcr_segments"][0][0].numel()
+    del session, engine, inputs, unfused_inputs, results, unfused, q_lo, q_hi
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -10,6 +10,8 @@ Match capacities are quantized to a small fixed ladder and query counts are
 padded to powers of two, exactly as in the JAX package, so both systems see
 the same windows and overflow counts.  ``sync=False`` skips the
 data-dependent compaction stages (their capacity picks are host syncs).
+``fused=True`` and ``run_many`` run plans on the fused path (core/fused.py):
+one device program per seeker group and one per plan's combiner DAG.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import combiners as comb
 from repro_torch.core import seekers as seek
 from repro_torch.core.cost_model import CostModel
@@ -28,6 +31,7 @@ from repro_torch.core.index import UnifiedIndex, hash_keys, resolve_device
 from repro_torch.core.match import MatchEngine
 from repro_torch.core.optimizer import optimize as optimize_plan
 from repro_torch.core.plan import Plan, SeekerSpec
+from repro_torch.core.programs import Programs
 
 # the match-capacity ladder: every seeker launch uses one of these
 # capacities, so a coarse ladder keeps the window shape stable across draws
@@ -37,14 +41,30 @@ PAD_SENTINEL = MISSING                    # reserved: never a real cell hash
 
 
 @dataclass
+class OverflowSlice:
+    """A lazy view into a fused group's stacked overflow vector: ``rows``
+    are this plan's seekers' rows in ``vec``, read when
+    ``ExecInfo.overflow`` is, not at dispatch."""
+    vec: torch.Tensor             # int64 [n_seekers_p] on the device
+    rows: list                    # this plan's row indices into vec
+
+
+@dataclass
 class ExecInfo:
     optimized: bool
     node_seconds: dict = field(default_factory=dict)
     order: list = field(default_factory=list)
     overflow_parts: list = field(default_factory=list)
-    # device-program dispatch count: every seeker call (compaction stages
-    # included) and every combiner node counts one
+    # seeker nodes served from a subplan cache (none until the query cache
+    # is ported) vs actually dispatched
+    cached_nodes: list = field(default_factory=list)
+    seeker_runs: int = 0
+    # device-program dispatch count: on the unfused path every seeker call
+    # (compaction stages included) and every combiner node counts one; the
+    # fused path counts its group launches + the single DAG program
     launches: int = 0
+    #: memoized ``overflow`` total (None until first read / batch fetch)
+    _overflow: int | None = None
 
     @property
     def total_seconds(self) -> float:
@@ -52,7 +72,39 @@ class ExecInfo:
 
     @property
     def overflow(self) -> int:
-        return int(sum(int(p) for p in self.overflow_parts))
+        """Matches beyond capacity, all parts fetched in ONE device-to-host
+        copy on first read."""
+        if self._overflow is None:
+            ExecInfo.materialize_overflow([self])
+        return self._overflow
+
+    @staticmethod
+    def materialize_overflow(infos):
+        """Resolve many infos' overflow totals in ONE device-to-host copy,
+        deduping shared vectors (a fused group's overflow vector is shared
+        by every plan of a ``run_many`` batch)."""
+        todo = [i for i in infos if i._overflow is None]
+        vecs: dict = {}
+        for i in todo:
+            for p in i.overflow_parts:
+                v = p.vec if isinstance(p, OverflowSlice) else p
+                vecs.setdefault(id(v), v)
+        host: dict = {}
+        if vecs:
+            flat = torch.cat([v.reshape(-1).to(torch.int64)
+                              for v in vecs.values()]).cpu().numpy()
+            off = 0
+            for k, v in vecs.items():
+                host[k] = flat[off:off + v.numel()]
+                off += v.numel()
+        for i in todo:
+            total = 0
+            for p in i.overflow_parts:
+                if isinstance(p, OverflowSlice):
+                    total += int(host[id(p.vec)][p.rows].sum())
+                else:
+                    total += int(host[id(p)].sum())
+            i._overflow = total
 
 
 def _pow2_at_least(n: int, lo: int = 8, hi: int = 1024) -> int:
@@ -86,10 +138,17 @@ class Executor:
         self.cap_ladder = tuple(sorted(rungs))
         self._hash_cache: dict = {}
         self._hash_cache_max = 1 << 20
+        self.programs = Programs(self.device)     # the fused path's programs
 
     # ------------------------------------------------------------------ util
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def synchronize(self):
+        """Wait for the device's queued work (nothing to wait for on the
+        CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _hash_many(self, values) -> np.ndarray:
         """Memoized value hashing (shared across queries / plans), bounded:
@@ -230,8 +289,8 @@ class Executor:
                 scores, ovf = seek.c_seeker(self.engine, qh, qm, qbit, **kw)
         else:
             raise ValueError(spec.kind)
-        if sync and scores.is_cuda:
-            torch.cuda.synchronize(scores.device)
+        if sync:
+            self.synchronize()
         self._last_overflow = ovf
         return comb.topk_result(scores, spec.k)
 
@@ -239,26 +298,52 @@ class Executor:
     def run(self, plan: Plan, optimize: bool = True,
             cost_model: CostModel | None = None, sync: bool = True,
             cache=None, fused: bool = False):
-        """Execute ``plan`` (unfused: one dispatch per node)."""
-        if cache is not None:
-            raise NotImplementedError(
-                "the query cache is not ported yet (ROADMAP queue A, item "
-                "A5: serve/cache.py)")
+        """Execute ``plan``: unfused, one dispatch per node; with
+        ``fused=True`` through core/fused.py, all same-kind seekers as one
+        batched device program and the combiner DAG as one more, so the
+        plan runs in ``~n_kinds + 1`` launches (``ExecInfo.launches``),
+        bit-identical to the unfused walk."""
+        _no_cache(cache)
         if fused:
-            raise NotImplementedError(
-                "fused execution is not ported yet (ROADMAP queue A, item A2: "
-                "core/fused.py)")
+            from repro_torch.core.fused import run_fused
+            rs, info = run_fused(self, [plan], optimize=optimize,
+                                 cost_model=cost_model)[0]
+            if sync:
+                self.synchronize()
+            return rs, info
         return self._run(plan, optimize, cost_model, sync)
+
+    def run_many(self, plans, optimize: bool = True,
+                 cost_model: CostModel | None = None, sync: bool = True,
+                 cache=None):
+        """Fused batch execution: same-kind seekers are batched *across all
+        plans* into shared device launches.  Returns [(ResultSet,
+        ExecInfo)] aligned with ``plans``; with ``sync=False`` nothing
+        synchronizes."""
+        from repro_torch.core.fused import run_fused
+        _no_cache(cache)
+        out = run_fused(self, list(plans), optimize=optimize,
+                        cost_model=cost_model)
+        if sync:
+            self.synchronize()
+        return out
 
     def _run(self, plan: Plan, optimize: bool, cost_model, sync: bool):
         info = ExecInfo(optimized=optimize)
         ep = optimize_plan(plan, self.seeker_stats, cost_model) if optimize \
             else None
         memo: dict[str, comb.ResultSet] = {}
+        # synchronized-timing mode (repro_torch.obs.set_sync_timing): each
+        # node waits for the device before its clock read, so node_seconds
+        # time device work, not the dispatch
+        sync_time = obs.sync_timing()
 
         def timed_seeker(name, spec, allowed=None):
             t0 = time.perf_counter()
             rs = self.run_seeker(spec, allowed=allowed, sync=sync)
+            if sync_time and not sync:
+                self.synchronize()
+            info.seeker_runs += 1
             info.launches += self._last_launches
             info.overflow_parts.append(self._last_overflow)
             info.node_seconds[name] = time.perf_counter() - t0
@@ -268,6 +353,8 @@ class Executor:
         def timed_combiner(name, fn):
             t0 = time.perf_counter()
             rs = fn()
+            if sync_time:
+                self.synchronize()
             info.node_seconds[name] = time.perf_counter() - t0
             info.order.append(name)
             info.launches += 1
@@ -311,7 +398,13 @@ class Executor:
             memo[name] = rs
             return rs
 
-        return eval_node(plan.output), info
+        result = eval_node(plan.output)
+        reg = obs.registry()
+        reg.counter("exec.plans").inc()
+        reg.counter("exec.launches").inc(info.launches)
+        reg.counter("exec.seeker_runs").inc(info.seeker_runs)
+        reg.histogram("exec.plan_seconds").observe(info.total_seconds)
+        return result, info
 
     def _run_group(self, plan, eg, combiner_node, timed_seeker,
                    timed_combiner, eval_node, memo):
@@ -337,3 +430,10 @@ class Executor:
         return timed_combiner(
             combiner_node.name,
             lambda: comb.intersect(results, combiner_node.spec.k))
+
+
+def _no_cache(cache):
+    if cache is not None:
+        raise NotImplementedError(
+            "the query cache is not ported yet (ROADMAP queue A, item A5: "
+            "serve/cache.py)")

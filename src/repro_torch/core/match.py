@@ -17,11 +17,12 @@ backends and to the JAX package's engine.
 * ``qcr(n_agree, n_all)`` — the correlation seeker's scoring epilogue.
 * ``member(sorted_keys, queries)`` — batched sorted-membership (the MC
   validation join).
+* ``probe_capped(...)`` — ``probe`` with per-row capacities and per-row
+  overflow, for the fused path's batched seekers (core/fused.py).
 
 Keys are int32 in the order-preserving form of ``core/index.py``.  Gather
 indices (``pidx``) are int64.  The engine holds one static segment; the
-LiveLake segment fan-out and the per-row capped probe of fused execution
-come with those slices.
+LiveLake segment fan-out and the ``alive`` mask come with that slice.
 """
 from __future__ import annotations
 
@@ -41,15 +42,19 @@ BACKENDS = ("sorted", "bucket")
 WIDTH_ALIGN = 32
 
 
-def _window(lo, count, q_mask, cap: int, n: int):
-    """[nq, cap] gather window from per-query run starts and lengths."""
+def _window(lo, count, q_mask, cap: int, n: int, row_caps=None):
+    """[nq, cap] gather window from per-query run starts and lengths.  With
+    ``row_caps`` (per-row capacities <= ``cap``) row i holds at most
+    ``row_caps[i]`` matches and the overflow comes back per row; without,
+    every row holds ``cap`` and the overflow is summed."""
     lane = torch.arange(cap, device=lo.device)
     pidx = lo[:, None] + lane[None, :]
-    valid = (lane[None, :] < count[:, None]) & q_mask[:, None]
+    limit = count if row_caps is None else torch.minimum(count, row_caps)
+    valid = (lane[None, :] < limit[:, None]) & q_mask[:, None]
     pidx = pidx.clamp(0, n - 1)
-    overflow = torch.where(q_mask, (count - cap).clamp(min=0),
-                           torch.zeros_like(count)).sum()
-    return pidx, valid, overflow
+    over = (count - (cap if row_caps is None else row_caps)).clamp(min=0)
+    over = torch.where(q_mask, over, torch.zeros_like(over))
+    return pidx, valid, over.sum() if row_caps is None else over
 
 
 def probe_sorted(sorted_keys, queries, q_mask, cap):
@@ -61,14 +66,17 @@ def probe_sorted(sorted_keys, queries, q_mask, cap):
                                 q_mask, cap)
 
 
-def probe_sorted_bounded(sorted_keys, n_real: int, queries, q_mask, cap):
+def probe_sorted_bounded(sorted_keys, n_real: int, queries, q_mask, cap,
+                         row_caps=None):
     """``probe_sorted`` over a length-padded sorted run: only the first
     ``n_real`` keys are live postings; clamping lo/hi to ``n_real`` keeps even
-    queries that equal the sentinel padding from touching it."""
+    queries that equal the sentinel padding from touching it.  ``row_caps``
+    as in ``_window``: with them this is the JAX package's
+    ``probe_sorted_capped`` (per-row capacities, per-row overflow)."""
     lo = torch.searchsorted(sorted_keys, queries, side="left").clamp(max=n_real)
     hi = torch.searchsorted(sorted_keys, queries,
                             side="right").clamp(max=n_real)
-    return _window(lo, hi - lo, q_mask, cap, sorted_keys.shape[0])
+    return _window(lo, hi - lo, q_mask, cap, sorted_keys.shape[0], row_caps)
 
 
 def sorted_member(sorted_keys, queries):
@@ -137,9 +145,24 @@ class MatchEngine:
     # ------------------------------------------------------------ primitives
     def probe(self, q_hash, q_mask, m_cap: int):
         """Postings window per query key: (pidx, valid, overflow)."""
-        n = self.dev["hash"].shape[0]
         if self.config.backend == "sorted":
             return probe_sorted(self.dev["hash"], q_hash, q_mask, m_cap)
+        return self._probe_bucket(q_hash, q_mask, m_cap, None)
+
+    def probe_capped(self, q_hash, q_mask, m_cap: int, row_caps):
+        """``probe`` with per-row match capacities ``row_caps`` (int32
+        [nq], each <= ``m_cap``): the fused path concatenates several
+        seekers' queries into one batch, and each row sees exactly the
+        window its own seeker's launch would.  Returns per-row overflow
+        instead of a batch total."""
+        if self.config.backend == "sorted":
+            n = self.dev["hash"].shape[0]
+            return probe_sorted_bounded(self.dev["hash"], n, q_hash, q_mask,
+                                        m_cap, row_caps)
+        return self._probe_bucket(q_hash, q_mask, m_cap, row_caps)
+
+    def _probe_bucket(self, q_hash, q_mask, m_cap: int, row_caps):
+        n = self.dev["hash"].shape[0]
         hits = bucket_ops.probe(self.bucket_hashes, self.bucket_payload,
                                 q_hash, self.config.bucket_bits)  # payload|-1
         hit = hits >= 0
@@ -148,7 +171,8 @@ class MatchEngine:
         # payloads form the run [base, base + count): recover the window
         # from the min payload instead of compacting the hit matrix
         base = torch.where(hit, hits, torch.full_like(hits, n)).amin(dim=1)
-        return _window(base.to(torch.int64), count, q_mask, m_cap, n)
+        return _window(base.to(torch.int64), count, q_mask, m_cap, n,
+                       row_caps)
 
     def rowjoin(self, rowkeys, mask, row_cap: int):
         """Numeric-postings window per candidate rowkey: (nidx, nvalid)."""

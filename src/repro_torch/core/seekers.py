@@ -16,34 +16,66 @@ dropped.
 Group-bys are scatter-adds of 0/1 contributions into f32: exact in any
 summation order (atomics included) while a count stays below 2^24, so scores
 are bit-identical to the JAX package's.  JAX's ``.at[].add(mode="drop")``
-drops out-of-range keys where ``index_add_`` raises, so ``_scatter_add``
-masks them explicitly.
+drops out-of-range keys where ``index_add_`` raises, so the scatters route
+them to a dump slot past the end.  Only the unfused compaction stages
+read device values on the host (their survivor counts, the C stage's
+``nonzero``); the ``*_seg`` functions of the fused path use no boolean-mask
+indexing, ``nonzero`` or ``.item()``, so they can be captured into CUDA
+graphs (core/programs.py).
+
+``TRACE_COUNTS`` counts the device programs built per kind: the fused
+path's program cache marks one per new key, the counterpart of the JAX
+package's count of jit traces.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
+from repro_torch import obs
+
 INT32_MAX = torch.iinfo(torch.int32).max
+
+TRACE_COUNTS = collections.Counter()
+
+
+def _mark_trace(kind: str):
+    """Count one new device program of ``kind``; also bridged into the
+    metrics registry (``exec.retraces``), so a caller with observability
+    enabled sees program churn without reaching into this module."""
+    TRACE_COUNTS[kind] += 1
+    reg = obs.registry()
+    reg.counter("exec.retraces").inc()
+    reg.counter(f"exec.retraces.{kind}").inc()
+
+
+def _scatter(size: int, key, vals, reduce: str):
+    """f32 [size] ``reduce`` ("sum" or "amax") of ``vals`` at ``key`` over
+    zeros; out-of-range keys go to a dump slot ``size`` that is cut off,
+    so they are dropped with no host sync (``mode="drop"``)."""
+    key = key.reshape(-1).to(torch.int64)
+    vals = vals.reshape(-1).to(torch.float32)
+    keep = (key >= 0) & (key < size)
+    key = torch.where(keep, key, size)
+    out = torch.zeros(size + 1, dtype=torch.float32, device=vals.device)
+    if reduce == "sum":
+        out.index_add_(0, key, vals)
+    else:
+        out.scatter_reduce_(0, key, vals, reduce=reduce)
+    return out[:size]
 
 
 def _scatter_add(size: int, key, vals):
     """f32 [size] sums of ``vals`` at ``key``; out-of-range keys are dropped
     (``.at[key].add(vals, mode="drop")``)."""
-    key = key.reshape(-1).to(torch.int64)
-    vals = vals.reshape(-1).to(torch.float32)
-    keep = (key >= 0) & (key < size)
-    out = torch.zeros(size, dtype=torch.float32, device=vals.device)
-    return out.index_add_(0, key[keep], vals[keep])
+    return _scatter(size, key, vals, "sum")
 
 
 def _scatter_max(size: int, key, vals):
     """f32 [size] maxima of ``vals`` at ``key`` over zeros, out-of-range keys
     dropped (``jnp.zeros(size).at[key].max(vals, mode="drop")``)."""
-    key = key.reshape(-1).to(torch.int64)
-    vals = vals.reshape(-1).to(torch.float32)
-    keep = (key >= 0) & (key < size)
-    out = torch.zeros(size, dtype=torch.float32, device=vals.device)
-    return out.scatter_reduce_(0, key[keep], vals[keep], reduce="amax")
+    return _scatter(size, key, vals, "amax")
 
 
 def _first_occurrence(*keys, valid=None):
@@ -106,12 +138,18 @@ def _tuple_mask_or_ones(tuple_mask, nt, device):
         if tuple_mask is None else tuple_mask
 
 
-def _mc_scores(t, ok, nt: int, n_tables: int):
-    """Matched-tuple count per table (one tuple counts once per table) and
-    surviving candidate rows per table."""
+def _tuple_table_hits(t, ok, nt: int, n_tables: int):
+    """f32 [nt, n_tables]: 1 where tuple i matched a row of the table (one
+    tuple counts once per table)."""
     tup = torch.arange(nt, device=t.device)[:, None]
-    per_tt = _scatter_max(nt * n_tables, tup * n_tables + t, ok)
-    scores = per_tt.reshape(nt, n_tables).sum(dim=0)
+    return _scatter_max(nt * n_tables, tup * n_tables + t,
+                        ok).reshape(nt, n_tables)
+
+
+def _mc_scores(t, ok, nt: int, n_tables: int):
+    """Matched-tuple count per table and surviving candidate rows per
+    table."""
+    scores = _tuple_table_hits(t, ok, nt, n_tables).sum(dim=0)
     row_counts = _scatter_add(n_tables, t, ok)
     return scores, row_counts
 
@@ -217,9 +255,12 @@ def mc_seeker_compact(engine, tuple_hashes, init_col, qk_lo, qk_hi, *, m_cap,
 # --------------------------------------------------------------------------
 
 def _qcr_table_scores(engine, nidx, nvalid, cj, qb, *, n_tables, max_cols,
-                      h_sample, sampling, min_support, allowed):
-    """Row-joined numeric cells -> per-(table, join_col, num_col) segment
-    sums -> QCR epilogue -> best triple per table."""
+                      h_sample, sampling, min_support, allowed, seg=None,
+                      n_seekers=1):
+    """Row-joined numeric cells -> per-(seeker, table, join_col, num_col)
+    segment sums -> QCR epilogue -> best triple per table: f32
+    [n_seekers, n_tables].  ``seg`` is each join posting's seeker (all 0
+    when None)."""
     idx = engine.dev
     ntab = idx["num_table"][nidx]
     ncol = idx["num_col"][nidx]
@@ -231,10 +272,12 @@ def _qcr_table_scores(engine, nidx, nvalid, cj, qb, *, n_tables, max_cols,
     agree = (nquad == qb[:, None]) & nvalid
     key = (ntab * max_cols + cj[:, None]) * max_cols + ncol
     dim = n_tables * max_cols * max_cols
-    n_all = _scatter_add(dim, key, nvalid)
-    n_agree = _scatter_add(dim, key, agree)
+    if seg is not None:
+        key = seg.to(torch.int64)[:, None] * dim + key
+    n_all = _scatter_add(n_seekers * dim, key, nvalid)
+    n_agree = _scatter_add(n_seekers * dim, key, agree)
     qcr = engine.qcr(n_agree, n_all, min_support)
-    return qcr.reshape(n_tables, -1).amax(dim=1)
+    return qcr.reshape(n_seekers, n_tables, -1).amax(dim=2)
 
 
 def c_seeker(engine, qj_hash, q_mask, q_bit, *, m_cap, row_cap, n_tables,
@@ -258,7 +301,7 @@ def c_seeker(engine, qj_hash, q_mask, q_bit, *, m_cap, row_cap, n_tables,
         engine, nidx, nvalid, idx["col"][pidx].reshape(-1), qb,
         n_tables=n_tables, max_cols=max_cols, h_sample=h_sample,
         sampling=sampling, min_support=min_support, allowed=allowed)
-    return scores, ovf
+    return scores[0], ovf
 
 
 def c_survivor_counts(engine, qj_hash, q_mask, *, m_cap, allowed=None):
@@ -298,4 +341,109 @@ def c_seeker_compact(engine, qj_hash, q_mask, q_bit, *, m_cap, cap2, row_cap,
         engine, nidx, nvalid, cj[keep], qb[keep], n_tables=n_tables,
         max_cols=max_cols, h_sample=h_sample, sampling=sampling,
         min_support=min_support, allowed=None)
-    return scores, ovf
+    return scores[0], ovf
+
+
+# --------------------------------------------------------------------------
+# Segmented (fused-batch) seekers: core/fused.py runs all same-kind seekers
+# of a plan, or of a whole query_many batch, as ONE device program.  The
+# padded query arrays are concatenated with per-row seeker ids (``seg_id``)
+# and per-row match capacities (``row_caps``, each seeker's own ladder
+# rung); probing goes through ``MatchEngine.probe_capped`` and the group-by
+# keys are prefixed with the seeker id, so one scatter gives a stacked
+# [n_seekers, n_tables] score matrix whose rows equal the dedicated
+# launches bit for bit (same windows, same 0/1 sums).  They run
+# unrestricted: the optimizer's masks are applied in the DAG program.  No
+# host sync, so each can be captured into a CUDA graph.
+# --------------------------------------------------------------------------
+
+def _seg_overflow(n_seekers: int, seg_id, ovf_rows):
+    """Per-row overflow summed by seeker: int64 [n_seekers]."""
+    out = torch.zeros(n_seekers, dtype=torch.int64, device=ovf_rows.device)
+    return out.index_add_(0, seg_id.to(torch.int64),
+                          ovf_rows.to(torch.int64))
+
+
+def sc_seeker_seg(engine, q_hash, q_mask, seg_id, row_caps, *, m_cap,
+                  n_seekers, n_tables, max_cols):
+    """Batched ``sc_seeker``: (scores f32 [n_seekers, n_tables], overflow
+    int64 [n_seekers])."""
+    idx = engine.dev
+    pidx, valid, ovf_rows = engine.probe_capped(q_hash, q_mask, m_cap,
+                                                row_caps)
+    t = idx["table"][pidx]
+    c = idx["col"][pidx]
+    contrib = valid & _first_occurrence(t, c, valid=valid)
+    key = (seg_id.to(torch.int64)[:, None] * n_tables + t) * max_cols + c
+    scores = _scatter_add(n_seekers * n_tables * max_cols, key, contrib)
+    return scores.reshape(n_seekers, n_tables, max_cols).amax(dim=2), \
+        _seg_overflow(n_seekers, seg_id, ovf_rows)
+
+
+def kw_seeker_seg(engine, q_hash, q_mask, seg_id, row_caps, *, m_cap,
+                  n_seekers, n_tables):
+    """Batched ``kw_seeker`` (SC without the ColumnId group key)."""
+    idx = engine.dev
+    pidx, valid, ovf_rows = engine.probe_capped(q_hash, q_mask, m_cap,
+                                                row_caps)
+    t = idx["table"][pidx]
+    contrib = valid & _first_occurrence(t, valid=valid)
+    key = seg_id.to(torch.int64)[:, None] * n_tables + t
+    scores = _scatter_add(n_seekers * n_tables, key, contrib)
+    return scores.reshape(n_seekers, n_tables), \
+        _seg_overflow(n_seekers, seg_id, ovf_rows)
+
+
+def mc_seeker_seg(engine, tuple_hashes, init_col, qk_lo, qk_hi, seg_id,
+                  row_caps, tuple_mask, *, m_cap, n_seekers, n_tables, n_cols,
+                  row_stride):
+    """Batched ``mc_seeker`` over the concatenated tuple blocks of all MC
+    seekers of one width ``n_cols``; ``seg_id`` is per tuple.  The
+    matched-tuple counts are summed by seeker after the per-tuple dedupe,
+    so each stacked row equals the dedicated launch's scores."""
+    idx = engine.dev
+    nt = tuple_hashes.shape[0]
+    h0 = torch.gather(tuple_hashes, 1,
+                      init_col.to(torch.int64)[:, None])[:, 0]
+    pidx, valid, ovf_rows = engine.probe_capped(h0, tuple_mask, m_cap,
+                                                row_caps)
+    t = idx["table"][pidx]
+    valid = valid & engine.bloom(pidx, qk_lo, qk_hi)
+    rowkey = _rowkey(t, idx["row"][pidx], row_stride)
+    ok = valid
+    for j in range(n_cols):                       # static, small
+        pj, vj, _ = engine.probe_capped(tuple_hashes[:, j].contiguous(),
+                                        tuple_mask, m_cap, row_caps)
+        rkj = _rowkey(idx["table"][pj], idx["row"][pj], row_stride)
+        rkj = torch.where(vj, rkj, torch.full_like(rkj, -1))
+        member = (rowkey[:, :, None] == rkj[:, None, :]).any(dim=-1)
+        ok = ok & (member | (init_col == j)[:, None])
+    scores = torch.zeros((n_seekers, n_tables), dtype=torch.float32,
+                         device=t.device)
+    scores.index_add_(0, seg_id.to(torch.int64),
+                      _tuple_table_hits(t, ok, nt, n_tables))
+    return scores, _seg_overflow(n_seekers, seg_id, ovf_rows)
+
+
+def c_seeker_seg(engine, qj_hash, q_mask, q_bit, seg_id, row_caps, *, m_cap,
+                 row_cap, n_seekers, n_tables, max_cols, h_sample, row_stride,
+                 sampling, min_support=3):
+    """Batched ``c_seeker``: the QCR group-by key is prefixed with the
+    seeker id of the originating join posting, so every segment sum (and
+    every QCR ratio) is built from exactly the contributions the dedicated
+    launch would see."""
+    idx = engine.dev
+    pidx, valid, ovf_rows = engine.probe_capped(qj_hash, q_mask, m_cap,
+                                                row_caps)
+    t = idx["table"][pidx]
+    rowkey = _rowkey(t, idx["row"][pidx], row_stride)
+    nidx, nvalid = engine.rowjoin(rowkey.reshape(-1), valid.reshape(-1),
+                                  row_cap)
+    qb = q_bit[:, None].expand(pidx.shape).reshape(-1)
+    seg = seg_id[:, None].expand(pidx.shape).reshape(-1)
+    scores = _qcr_table_scores(
+        engine, nidx, nvalid, idx["col"][pidx].reshape(-1), qb,
+        n_tables=n_tables, max_cols=max_cols, h_sample=h_sample,
+        sampling=sampling, min_support=min_support, allowed=None, seg=seg,
+        n_seekers=n_seekers)
+    return scores, _seg_overflow(n_seekers, seg_id, ovf_rows)

@@ -11,9 +11,10 @@ A Session owns the resident unified index + executor and compiles BlendQL
 rewrite rules, the ranked physical order and per-node timings.  Legacy
 physical ``Plan`` objects are accepted everywhere an expression is.
 
-This slice serves a static index with the query cache off; live lakes,
-the cache, sharding, the WAL, fused execution, the approximate tier,
-batched ``query_many`` and snapshot restore/recovery raise
+``query(fused=True)`` and ``query_many`` run on the fused path
+(core/fused.py).  This slice serves a static index with the query cache
+off; live lakes, the cache, sharding, the WAL, the approximate tier, the
+serving front tier and snapshot restore/recovery raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 
+from repro_torch import obs
 from repro_torch.core.cost_model import CostModel
 from repro_torch.core.executor import ExecInfo, Executor
 from repro_torch.core.index import build_index, resolve_device
@@ -36,9 +38,7 @@ _LATER = {
     "cache": "the query cache (ROADMAP queue A, item A5)",
     "shards": "sharding (ROADMAP queue A, item A6)",
     "wal": "LiveLake on torch with its WAL (ROADMAP queue A, item A4)",
-    "fused": "fused execution (ROADMAP queue A, item A2)",
     "approx": "the approximate tier (ROADMAP queue A, item A7)",
-    "query_many": "fused batched execution (ROADMAP queue A, item A2)",
     "restore": "LiveLake snapshots (ROADMAP queue A, item A4)",
     "recover": "LiveLake crash recovery (ROADMAP queue A, item A4)",
     "server": "the serving front tier (ROADMAP queue A, item A5)",
@@ -99,6 +99,7 @@ class Explain:
     ids: list
     launches: int = 0                 # device-program dispatches (ExecInfo)
     index_shape: dict = field(default_factory=dict)   # Session.index_shape
+    metrics: dict = field(default_factory=dict)       # obs registry snapshot
 
     def __str__(self):
         lines = ["== logical plan =="]
@@ -114,6 +115,20 @@ class Explain:
             lines.append(f"  live tables: {s['live_tables']}"
                          + (f"   tombstoned: {s['tombstoned']}"
                             if s["tombstoned"] else ""))
+        if self.metrics:
+            m = self.metrics
+            lines.append("== metrics ==")
+            for name, v in m.get("counters", {}).items():
+                lines.append(f"  {name:<40s} {v:,.0f}")
+            for name, v in m.get("gauges", {}).items():
+                lines.append(f"  {name:<40s} {v:,.1f}")
+            for name, h in m.get("histograms", {}).items():
+                scale, unit = (1e3, "ms") if "seconds" in name \
+                    else (1.0, "")
+                lines.append(f"  {name:<40s} n={h['count']:<7d} "
+                             f"p50={h['p50'] * scale:9.3f}{unit} "
+                             f"p95={h['p95'] * scale:9.3f}{unit} "
+                             f"p99={h['p99'] * scale:9.3f}{unit}")
         lines.append("== physical order (ranked execution groups) ==")
         if self.physical_order:
             for comb, seekers in self.physical_order.items():
@@ -198,15 +213,17 @@ class Session:
     def query(self, q, top: int | None = None, optimize: bool = True,
               sync: bool = True, fused: bool = False,
               approx=False) -> QueryResult:
-        """Compile + execute; ``top`` overrides/sets the root result limit."""
-        if fused:
-            _not_ported("fused")
+        """Compile + execute; ``top`` overrides/sets the root result limit.
+        ``fused=True`` executes on the fused path (core/fused.py): batched
+        same-kind seeker dispatch + a single whole-DAG device program,
+        ``ExecInfo.launches <= n_kinds + 1``, bit-identical results."""
         if approx:
             _not_ported("approx")
         compiled = q if isinstance(q, Compiled) else self.compile(q, top=top)
         t0 = time.perf_counter()
         rs, info = self.executor.run(compiled.plan, optimize=optimize,
-                                     cost_model=self.cost_model, sync=sync)
+                                     cost_model=self.cost_model, sync=sync,
+                                     fused=fused)
         return QueryResult(result=rs, info=info, compiled=compiled,
                            seconds=time.perf_counter() - t0)
 
@@ -215,8 +232,36 @@ class Session:
         """Execute one BlendQL statement."""
         return self.query(text, optimize=optimize, sync=sync)
 
-    def query_many(self, queries, **kwargs):
-        _not_ported("query_many")
+    def query_many(self, queries, top: int | None = None,
+                   optimize: bool = True, sync: bool = True,
+                   fused: bool = True) -> list:
+        """Execute a batch of queries; with ``fused=True`` (the default)
+        same-kind seekers are batched *across all requests* into shared
+        device launches (``Executor.run_many``), so a heterogeneous batch
+        executes in about one launch per seeker kind plus one DAG program
+        per request; ``fused=False`` runs ``query`` on each in turn.  Every
+        result is bit-identical to a sequential run.
+
+        Each result's ``seconds`` is its own compile time plus an equal
+        share of the batch's execution."""
+        pending = []
+        for q in queries:
+            t0 = time.perf_counter()
+            comp = q if isinstance(q, Compiled) else self.compile(q, top=top)
+            pending.append((comp, time.perf_counter() - t0))
+        if not pending:
+            return []
+        if not fused:
+            return [self.query(comp, optimize=optimize, sync=sync)
+                    for comp, _ in pending]
+        t0 = time.perf_counter()
+        outs = self.executor.run_many([c.plan for c, _ in pending],
+                                      optimize=optimize,
+                                      cost_model=self.cost_model, sync=sync)
+        share = (time.perf_counter() - t0) / len(pending)
+        return [QueryResult(result=rs, info=info, compiled=comp,
+                            seconds=own_s + share)
+                for (comp, own_s), (rs, info) in zip(pending, outs)]
 
     # ---------------------------------------------------------------- explain
     def explain(self, q, top: int | None = None, optimize: bool = True,
@@ -225,9 +270,10 @@ class Session:
         """Compile (and by default run) ``q``; returns the transcript:
         rendered logical tree, applied rewrite rules, the index's shape,
         ranked physical order, and per-node timings from the actual
-        execution."""
-        if fused:
-            _not_ported("fused")
+        execution.  ``fused=True`` executes on the fused path: the
+        ``launches`` line then shows the collapsed dispatch count (<=
+        n_kinds + 1).  With ``repro_torch.obs`` enabled the transcript also
+        carries the metrics snapshot (``== metrics ==``)."""
         if server:
             _not_ported("server")
         compiled = q if isinstance(q, Compiled) else self.compile(q, top=top)
@@ -245,7 +291,7 @@ class Session:
         info = ExecInfo(optimized=optimize)
         ids: list = []
         if execute:
-            res = self.query(compiled, optimize=optimize)
+            res = self.query(compiled, optimize=optimize, fused=fused)
             info, ids = res.info, res.ids
         return Explain(logical_tree=tree,
                        applied_rules=list(compiled.applied_rules),
@@ -253,7 +299,9 @@ class Session:
                        node_seconds=dict(info.node_seconds),
                        overflow=info.overflow if execute else 0, ids=ids,
                        launches=info.launches,
-                       index_shape=self.index_shape())
+                       index_shape=self.index_shape(),
+                       metrics=obs.registry().snapshot()
+                       if obs.enabled() else {})
 
 
 def connect(lake, cost_model: CostModel | None = None, live: bool = False,

@@ -1,8 +1,10 @@
 """repro_torch's CUDA kernels on the card, against their plain versions.
 
 Every kernel test takes the ``cuda`` fixture, which skips without a card;
-the default-device test runs everywhere.  This file imports no JAX, so it
-runs on the H100 machine as it is:
+the default-device test runs everywhere.  The fused path's tests check
+that a CUDA-graph replay equals an eager call, leaves earlier results as
+they were, captures nothing when warm, and ticks the launch counters.
+This file imports no JAX, so it runs on the H100 machine as it is:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
 import numpy as np
@@ -10,11 +12,14 @@ import pytest
 import torch
 
 import repro_torch as blend
+from repro_torch.core import seekers as seek
 from repro_torch.core.executor import Executor
 from repro_torch.core.hashing import MISSING
 from repro_torch.core.index import build_index, hash_keys
 from repro_torch.core.lake import synthetic_lake
 from repro_torch.core.match import MatchEngine
+from repro_torch.core.plan import Combiners, Plan, Seekers
+from repro_torch.core.programs import Programs
 from repro_torch.kernels import _build
 from repro_torch.kernels.bucket_probe import ops as bucket_ops
 from repro_torch.kernels.bucket_probe.ref import bucket_probe_ref
@@ -275,3 +280,114 @@ def test_match_engine_defaults_to_the_card():
     eng = MatchEngine.from_index(idx, backend="bucket")
     assert eng.bucket_hashes.is_cuda
     assert all(t.is_cuda for t in eng.dev.values() if torch.is_tensor(t))
+
+
+# --------------------------------------------------------- the fused path
+
+def _fused_plan(lake, tab):
+    """All four seeker kinds, MC at two widths, under every combiner kind;
+    the same shapes for every ``tab``."""
+    t = lake.tables[tab]
+    p = Plan()
+    p.add("sc", Seekers.SC(list(t.columns[0][:6]), k=12))
+    p.add("kw", Seekers.KW([t.columns[1][0], t.columns[1][1]], k=12))
+    p.add("mc", Seekers.MC([(t.columns[0][r], t.columns[1][r])
+                            for r in range(4)], k=12))
+    p.add("mc3", Seekers.MC([(t.columns[0][r], t.columns[1][r],
+                              t.columns[2][r]) for r in range(3)], k=12))
+    p.add("c", Seekers.Correlation(list(t.columns[0][:6]),
+                                   [float(i) for i in range(6)], k=12, h=64))
+    p.add("and", Combiners.Intersect(k=16), ["sc", "kw", "mc"])
+    p.add("or", Combiners.Union(k=16), ["sc", "c", "mc3"])
+    p.add("cnt", Combiners.Counter(k=16), ["and", "or"])
+    p.add("root", Combiners.Difference(k=8), ["cnt", "kw"])
+    return p
+
+
+@pytest.fixture
+def fused_lake(cuda):
+    lake = synthetic_lake(n_tables=30, rows=16, cols=4, vocab=300, seed=11)
+    return lake, build_index(lake)
+
+
+QUERY_WRAPPERS = (bucket_ops.probe, sk_ops.filter_candidates,
+                  qcr_ops.score_segments)
+
+
+def test_fused_programs_replay_equal_eager_on_card(fused_lake, monkeypatch):
+    """Each seeker group's program and the DAG program, captured and then
+    replayed, equal an eager call of the same function on the same
+    operands on the card; the fused results equal the unfused walk on the
+    card (both backends) and the fused path on the CPU."""
+    lake, idx = fused_lake
+    checked = []
+    run = Programs.run
+
+    def run_and_check(self, key, kind, fn, host=(), dev=()):
+        eager = fn(*[torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                     for a in host], *[t.clone() for t in dev])
+        out = run(self, key, kind, fn, host, dev)
+        torch.cuda.synchronize()
+        assert len(out) == len(eager)
+        assert all(torch.equal(o, e) for o, e in zip(out, eager)), kind
+        checked.append(kind)
+        return out
+
+    monkeypatch.setattr(Programs, "run", run_and_check)
+    cards = {b: Executor(idx, backend=b) for b in ("bucket", "sorted")}
+    cpu = Executor(idx, backend="bucket", device="cpu")
+    for tab in (2, 5):               # capture, then replay the same keys
+        plan = _fused_plan(lake, tab)
+        want, want_info = cpu.run(plan, fused=True)
+        for ex in cards.values():
+            got, info = ex.run(plan, fused=True)
+            walk, walk_info = ex.run(plan)
+            for rs in (got, walk):
+                assert torch.equal(rs.scores.cpu(), want.scores)
+                assert torch.equal(rs.mask.cpu(), want.mask)
+            assert info.overflow == walk_info.overflow == want_info.overflow
+            assert info.launches == 5 + 1       # SC KW MC/2 MC/3 C + DAG
+    assert {"SC_seg", "KW_seg", "MC_seg", "C_seg", "DAG"} == set(checked)
+    assert len(checked) == 2 * 3 * 6         # the CPU executor runs too
+
+
+def test_fused_replay_leaves_earlier_results_unchanged(fused_lake):
+    """A second replay of the same programs with other values rewrites the
+    programs' buffers, not an earlier result (scores, mask, overflow)."""
+    lake, idx = fused_lake
+    ex = Executor(idx, backend="bucket")
+    first, first_info = ex.run(_fused_plan(lake, 2), fused=True)
+    kept = (first.scores.clone(), first.mask.clone())
+    n_programs = len(ex.programs)
+    second, _ = ex.run(_fused_plan(lake, 5), fused=True)
+    torch.cuda.synchronize()
+    assert len(ex.programs) == n_programs           # same keys, replayed
+    assert not torch.equal(second.scores, kept[0])
+    assert torch.equal(first.scores, kept[0])
+    assert torch.equal(first.mask, kept[1])
+    assert first_info.overflow == ex.run(_fused_plan(lake, 2))[1].overflow
+
+
+def test_fused_warm_rerun_captures_nothing(fused_lake):
+    lake, idx = fused_lake
+    ex = Executor(idx, backend="bucket")
+    ex.run(_fused_plan(lake, 2), fused=True)
+    before, n_programs = dict(seek.TRACE_COUNTS), len(ex.programs)
+    for tab in (5, 9, 14):
+        ex.run(_fused_plan(lake, tab), fused=True)
+    assert dict(seek.TRACE_COUNTS) == before
+    assert len(ex.programs) == n_programs
+
+
+def test_fused_replays_tick_the_launch_counters(fused_lake):
+    """The wrappers count in Python, which a replay does not run: each
+    replay adds what its capture counted, the same on every run."""
+    lake, idx = fused_lake
+    ex = Executor(idx, backend="bucket")
+    ex.run(_fused_plan(lake, 2), fused=True)
+    ticks = []
+    for tab in (5, 9):
+        before = [f.launches for f in QUERY_WRAPPERS]
+        ex.run(_fused_plan(lake, tab), fused=True)
+        ticks.append([f.launches - b for f, b in zip(QUERY_WRAPPERS, before)])
+    assert ticks[0] == ticks[1] and all(n > 0 for n in ticks[0])

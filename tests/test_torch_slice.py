@@ -193,16 +193,14 @@ def test_later_slices_raise_not_implemented(sessions):
                        ({"shards": 2}, "A6"), ({"wal": "lake.wal"}, "A4")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             blend.connect(lake, device="cpu", **opts)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A2"):
-        port.query(expr, fused=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
         port.query(expr, approx=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A2"):
-        port.query_many([expr])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A2"):
-        port.executor.run(port.compile(expr).plan, fused=True)
+    plan = port.compile(expr).plan
+    for fused in (False, True):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*A5"):
+            port.executor.run(plan, cache=object(), fused=fused)
     with pytest.raises(NotImplementedError, match="ROADMAP.*A5"):
-        port.executor.run(port.compile(expr).plan, cache=object())
+        port.executor.run_many([plan], cache=object())
     for fn in (blend.restore, blend.recover):
         with pytest.raises(NotImplementedError, match="ROADMAP.*A4"):
             fn("snap")
@@ -267,13 +265,15 @@ def test_index_shape_and_explain_index_block_match_reference(sessions,
 
 
 def test_explain_fused_and_server_raise_not_implemented(sessions):
+    """``server=`` still raises (it comes with A5); ``fused=True`` now runs
+    and gives the unfused ids."""
     _, _, ports = sessions
     port = ports["sorted"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A2"):
-        port.explain(README_SQL, fused=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.*A5"):
         port.explain(README_SQL, server={"x": 1})
-    assert port.explain(README_SQL, fused=False, server=None).ids
+    unfused = port.explain(README_SQL, fused=False, server=None)
+    assert unfused.ids
+    assert port.explain(README_SQL, fused=True).ids == unfused.ids
 
 
 def test_connect_without_card_raises(monkeypatch):
