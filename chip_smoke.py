@@ -34,7 +34,12 @@ Phases (each prints JSON lines):
    on replay, and no program may be captured), ``ExecInfo.launches``
    beside phase 3's, peak memory, all eight as one ``query_many`` batch,
    and one profiled run per query, whose trace must show each query-path
-   kernel as many times as the programs ticked its counter.  Every fused
+   kernel exactly as many times as the programs ticked its counter in
+   that run (``traced_launches``: a query whose trace falls short is
+   profiled again, up to three runs, and fails if none is equal).  Every
+   profiled run follows a warm-up run in the same profiler session and a
+   marker kernel, and only what follows the marker is read: the profiler
+   drops the earliest device records of a session.  Every fused
    and batched result must equal phase 3's, ids and scores, bit for bit.
 
 4. entry points: the kernel packages' own entry points, which no query
@@ -52,6 +57,28 @@ Phases (each prints JSON lines):
    length, and the kernels' registers, spills and shared memory from the
    build's ``-Xptxas -v`` report.
 
+5. live lake (run between 3b and 4, which frees the lake): the same lake
+   through ``connect(lake, live=True, backend="bucket", wal=...)``, then
+   ``add_tables`` of 64 tables of the same width, ``drop_table`` of 32
+   base tables (tombstones), ``add_table`` of a guard table,
+   ``snapshot``, a drop and re-add of the guard (auto-compaction merged
+   its first delta, so the re-add is a new geometry) and a second drop and
+   re-add (a geometry seen before).  After each step:
+   mutate, refresh and first-query ms, arena bytes copied, programs built
+   (0 for the tombstones, the snapshot, the drops and the seen geometry),
+   the programs the executor holds and the device memory allocated,
+   0 captures in the timed runs, the fused p50 of the eight queries and of
+   two guard queries (``sc`` / ``kw`` over the guard's first column: the
+   guard first while live, absent once dropped), every result equal to
+   the unfused run and to a ``sorted`` Executor on the same store.  Then
+   traced = ticked launches on one profiled fused run per query, as in
+   3b, each distinct kernel input of the live path against the plain
+   version, the results against a static ``sorted`` rebuild of the live tables through
+   ``live_ids()``, a full ``compact()`` (results unchanged) and
+   ``repro_torch.recover`` from the snapshot and the WAL (results and
+   epoch equal to the session it replaces).  The launch counters are set
+   to 0 at the phase's start and read at its end.
+
 A ``replaced_kernels`` line quotes, as constants not measured in the run,
 the device times of the superkey kernels this version replaced
 (``scripts/superkey_ab.py`` times another build against this one in one
@@ -63,9 +90,11 @@ from __future__ import annotations
 import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -78,7 +107,7 @@ import repro_torch as blend  # noqa: E402  (fails outside a checkout)
 from repro_torch import obs  # noqa: E402
 from repro_torch.core import seekers as seek  # noqa: E402
 from repro_torch.core.executor import Executor  # noqa: E402
-from repro_torch.core.lake import synthetic_lake  # noqa: E402
+from repro_torch.core.lake import DataLake, synthetic_lake  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bucket_probe import ops as bucket_ops  # noqa: E402
 from repro_torch.kernels.bucket_probe.ref import bucket_probe_ref  # noqa
@@ -106,6 +135,8 @@ TENSOR_BF16_OPS_PER_S = 989e12
 TENSOR_TF32_OPS_PER_S = 495e12
 F32_3XTF32_OPS_PER_S = TENSOR_TF32_OPS_PER_S / 3
 SEED = 0
+MARKER = "spin_kernel"        # the kernel torch.cuda._sleep launches
+TRACE_TRIES = 3               # profiled sessions a trace check may take
 
 #: name -> (wrapper module, wrapper attribute, plain version, source, TPU kernel)
 KERNELS = {
@@ -242,8 +273,10 @@ def record_kernel_inputs(session, queries):
     (each query, then all of them as one ``query_many``) through a
     throwaway bucket executor on the same index (so that no recording
     wrapper stands in while the session's programs are captured).
-    Returns (largest on either path, largest unfused)."""
+    Returns (largest on either path, largest unfused, {kernel: {signature:
+    input}} with one input per distinct argument shape seen)."""
     seen = {}
+    shapes = {name: {} for name in KERNELS}
     originals = {}
     for name, (mod, attr, *_rest) in KERNELS.items():
         fn = getattr(mod, attr)
@@ -253,9 +286,12 @@ def record_kernel_inputs(session, queries):
             # a call under graph capture runs nothing, so its arguments
             # hold no values; each program's eager warm-up call is kept
             size = sum(a.numel() for a in args if torch.is_tensor(a))
-            if (not torch.cuda.is_current_stream_capturing() and
-                    size >= seen.get(_name, (-1,))[0]):
-                seen[_name] = (size, args, kwargs)
+            if not torch.cuda.is_current_stream_capturing():
+                if size >= seen.get(_name, (-1,))[0]:
+                    seen[_name] = (size, args, kwargs)
+                sig = tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                            for a in args)
+                shapes[_name].setdefault(sig, (args, kwargs))
             return _fn(*args, **kwargs)
 
         # a wrapper counts into the function its module name is bound to:
@@ -282,7 +318,7 @@ def record_kernel_inputs(session, queries):
     if missing:
         raise RuntimeError(f"main path never reached {sorted(missing)}")
     return tuple({name: (args, kwargs) for name, (_, args, kwargs)
-                  in found.items()} for found in (seen, unfused))
+                  in found.items()} for found in (seen, unfused)) + (shapes,)
 
 
 def l2_flusher(device):
@@ -311,37 +347,68 @@ def time_ms(fn, flush, iters=20) -> float:
 
 
 def device_events(fn, iters):
-    """Run ``fn`` ``iters`` times under ``torch.profiler``; returns
-    (wall ms per run, the averaged events that ran on the device).  Only
-    those count: a host operator's own device time repeats its kernels'."""
+    """Run ``fn`` once, then ``iters`` times, under one ``torch.profiler``
+    session.  Returns (wall ms per counted run, {device activity name:
+    [records, device ms]} of the counted runs, {kernel: launches its
+    wrapper ticked in them}, {kernel: launches of the first run its trace
+    lacks}).  The profiler on the H100 machine drops the earliest device
+    records of a session (PERF.md section 6), so the first run absorbs
+    that loss and only what follows a marker kernel (``torch.cuda._sleep``)
+    is read; a session whose trace lost the marker too is run again, up
+    to ``TRACE_TRIES`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
+    for _ in range(TRACE_TRIES):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / iters
-    return wall, [e for e in prof.key_averages()
-                  if e.device_type != DeviceType.CPU and
-                  e.self_device_time_total > 0]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            first = kernel_launches()
+            fn()
+            torch.cuda.synchronize()
+            first = {k: v - first[k] for k, v in kernel_launches().items()}
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            before = kernel_launches()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / iters
+            ticked = {k: v - before[k] for k, v in kernel_launches().items()}
+        device = sorted((e.start_ns(), e.name(), e.duration_ns())
+                        for e in prof.profiler.kineto_results.events()
+                        if e.device_type() != DeviceType.CPU)
+        marks = [i for i, (_, name, _) in enumerate(device)
+                 if MARKER in name]
+        if len(marks) == 1:
+            break
+    else:
+        raise AssertionError(f"the profiler's trace lost the marker kernel "
+                             f"in {TRACE_TRIES} sessions")
+    events: dict = {}
+    for _, name, ns in device[marks[0] + 1:]:
+        rec = events.setdefault(name, [0, 0.0])
+        rec[0] += 1
+        rec[1] += ns / 1e6
+    lost = {k: n - sum(f"{k}_kernel" in name
+                       for _, name, _ in device[:marks[0]])
+            for k, n in first.items()}
+    return wall, events, ticked, lost
 
 
 def profiled(fn, iters):
-    """(wall ms per run, {device event key: device ms per run}) of ``fn``
+    """(wall ms per run, {device activity: device ms per run}) of ``fn``
     run ``iters`` times under the profiler (``device_events``)."""
-    wall, events = device_events(fn, iters)
-    return wall, {e.key: e.self_device_time_total / 1e3 / iters
-                  for e in events}
+    wall, events, _, _ = device_events(fn, iters)
+    return wall, {name: ms / iters for name, (_, ms) in events.items()}
 
 
 def kernel_device_ms(fn, symbol, flush, iters=20):
-    """Device time of one launch of the kernel whose name holds ``symbol``,
-    L2 flushed before each (None when the profiler sees no device time)."""
-    _, device = profiled(lambda: (flush(), fn()), iters)
-    hits = [ms for key, ms in device.items() if symbol in key]
+    """Device time of one launch of the kernel whose name holds ``symbol``
+    (the mean over the launches the trace recorded), L2 flushed before
+    each (None when the profiler sees no device time)."""
+    _, events, _, _ = device_events(lambda: (flush(), fn()), iters)
+    hits = [ms / n for name, (n, ms) in events.items() if symbol in name]
     return sum(hits) if hits else None
 
 
@@ -608,20 +675,11 @@ def run_fused_path(session, queries, unfused) -> dict:
 
     # the launches the card ran, read from the trace, beside the ones the
     # programs ticked on replay in the same runs
-    reset_launches()
-    busy, traced = {}, dict.fromkeys(KERNELS, 0)
-    for label, q in queries.items():
-        wall, events = device_events(
-            lambda: run_query(session, q, fused=True), 1)
-        busy[label] = {"wall_ms": wall, "device_ms": sum(
-            e.self_device_time_total for e in events) / 1e3}
-        for name in KERNELS:
-            traced[name] += sum(e.count for e in events
-                                if f"{name}_kernel" in e.key)
-    ticked = kernel_launches()
+    busy, traced, ticked, lost = traced_launches(session, queries)
     emit({"phase": "fused_device_busy", "note": "one profiled run per query",
           "queries": busy, "kernel_launches_traced": traced,
-          "kernel_launches_ticked": ticked})
+          "kernel_launches_ticked": ticked,
+          "warm_up_launches_untraced": lost})
     if bad:
         raise AssertionError(f"fused results differ from phase 3: {bad}")
     if captures or batch_captures:
@@ -631,9 +689,6 @@ def run_fused_path(session, queries, unfused) -> dict:
     if idle:
         raise AssertionError(f"no launch of {idle} in the fused path's "
                              f"trace")
-    if traced != ticked:
-        raise AssertionError(f"fused launches traced {traced} but ticked "
-                             f"{ticked}")
     return kernels
 
 
@@ -658,6 +713,369 @@ def check_results(session, results):
     if not any(s["n_ids"] for s in summary.values()):
         raise AssertionError("every query came back empty")
     emit({"phase": "check", "equal_to": sorted(others), "queries": summary})
+
+
+# ------------------------------------------------------------ phase 5: live
+
+#: phase 5's mutations: tables ``add_tables`` adds, base tables it drops
+LIVE_ADDS = 64
+LIVE_DROPS = 32
+
+
+def live_tables(n, seed, prefix):
+    """``n`` tables at the smoke lake's width from ``synthetic_lake`` with
+    ``seed``, renamed ``prefix`` + i so that no name is a base table's."""
+    tables = synthetic_lake(**{**LAKE, "n_tables": n, "seed": seed}).tables
+    for i, t in enumerate(tables):
+        t.name = f"{prefix}{i}"
+    return tables
+
+
+def guard_queries(table) -> dict:
+    """An ``sc`` and a ``kw`` over the cells of ``table``'s first text
+    column: while the table is live they rank it first."""
+    cells = list(table.columns[0])
+    return {"guard sc": blend.sc(cells), "guard kw": blend.kw(cells)}
+
+
+def run_all(session, queries, fused) -> dict:
+    out = {label: run_query(session, q, fused=fused)
+           for label, q in queries.items()}
+    torch.cuda.synchronize()
+    return out
+
+
+def check_guard(results, tid, live, step):
+    """The guard queries rank table ``tid`` first while it is live, and
+    never once it is dropped."""
+    for label in ("guard sc", "guard kw"):
+        ids = results[label].ids
+        if (live and ids[:1] != [tid]) or (not live and tid in ids):
+            raise AssertionError(f"live step {step}: {label} gives "
+                                 f"{ids[:3]} with table {tid} "
+                                 f"{'live' if live else 'dropped'}")
+
+
+def live_step(session, checker, queries, step, mutate) -> tuple:
+    """One step of phase 5: ``mutate`` (host-timed), the refresh and the
+    first fused query, the rest warmed, then REPEATS timed fused runs of
+    every query and one unfused run.  Every result must equal the card's
+    ``sorted`` executor on the same store (``checker``) and the unfused
+    run; no program may be captured in the timed runs.  Returns (the
+    step's line, fused results)."""
+    ex = session.executor
+    t0 = time.perf_counter()
+    mutate()
+    mutate_ms = (time.perf_counter() - t0) * 1e3
+    built0 = sum(seek.TRACE_COUNTS.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex.refresh()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    first = next(iter(queries.values()))
+    run_query(session, first, fused=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    run_all(session, queries, fused=True)
+    built = sum(seek.TRACE_COUNTS.values()) - built0
+    p50, results = {}, {}
+    for label, q in queries.items():
+        times = []
+        for _ in range(REPEATS):
+            t3 = time.perf_counter()
+            results[label] = run_query(session, q, fused=True)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t3) * 1e3)
+        p50[label] = statistics.median(times)
+    captures = sum(seek.TRACE_COUNTS.values()) - built0 - built
+    unfused = run_all(session, queries, fused=False)
+    bad = [label for label, res in results.items()
+           if not same_result(unfused[label], res)]
+    for label, res in results.items():
+        rs, _ = checker.run(res.compiled.plan)
+        if not torch.equal(rs.scores, res.scores) or \
+                [int(t) for t in rs.ids()] != res.ids:
+            bad.append(f"{label} (sorted)")
+    shape = session.index_shape()
+    line = {"phase": "live", "step": step, "mutate_ms": mutate_ms,
+            "refresh_ms": (t1 - t0) * 1e3,
+            "first_query_ms": (t2 - t0) * 1e3,
+            "arena_copied_bytes": ex.arena.copied_bytes,
+            "arena_generation": ex.arena.generation,
+            "programs_built": built, "captures_in_timed_runs": captures,
+            "programs": len(ex.programs),
+            "memory_allocated_bytes": torch.cuda.memory_allocated(),
+            "p50_ms": p50, "epoch": shape["epoch"],
+            "segments": shape["segments"],
+            "postings_per_segment": shape["postings_per_segment"],
+            "live_tables": shape["live_tables"],
+            "tombstoned": len(shape["tombstoned"]),
+            "table_slots": shape["table_slots"]}
+    emit(line)
+    if bad:
+        raise AssertionError(f"live step {step}: {bad} differ")
+    if captures:
+        raise AssertionError(f"live step {step}: {captures} programs "
+                             f"captured in timed runs")
+    return line, results
+
+
+def traced_launches(session, queries) -> tuple:
+    """One profiled fused run per query (``device_events``, after a
+    warm-up run in the same session): the query-path kernels its trace
+    shows must equal the launches its programs ticked in that run, kernel
+    by kernel.  A trace can still lack one whole graph launch's records
+    (PERF.md section 6), so a query whose trace falls short is profiled
+    again, up to ``TRACE_TRIES`` runs; a query with no equal run fails, as
+    does a trace with more launches than ticked.  Returns ({query: wall ms,
+    device ms and runs of its equal run}, traced, ticked, the warm-up
+    runs' launches their traces lack), the launches summed over the
+    queries' equal runs."""
+    busy, short = {}, {}
+    traced, ticked = dict.fromkeys(KERNELS, 0), dict.fromkeys(KERNELS, 0)
+    warm_up_lost = dict.fromkeys(KERNELS, 0)
+    for label, q in queries.items():
+        for run in range(1, TRACE_TRIES + 1):
+            wall, events, want, lost = device_events(
+                lambda: run_query(session, q, fused=True), 1)
+            got = {name: sum(n for key, (n, _) in events.items()
+                             if f"{name}_kernel" in key)
+                   for name in KERNELS}
+            for name in KERNELS:
+                warm_up_lost[name] += lost[name]
+            if any(got[k] > want[k] for k in KERNELS):
+                raise AssertionError(f"{label}: traced {got} but ticked "
+                                     f"{want}")
+            if got == want:
+                break
+            short[label] = short.get(label, []) + [
+                {k: want[k] - got[k] for k in KERNELS}]
+        else:
+            raise AssertionError(f"{label}: no profiled run traced the "
+                                 f"{want} launches ticked: {short[label]}")
+        busy[label] = {"wall_ms": wall, "runs": run, "device_ms": sum(
+            ms for _, ms in events.values())}
+        for name in KERNELS:
+            traced[name] += got[name]
+            ticked[name] += want[name]
+    if short:
+        emit({"phase": "trace_reruns", "short": short})
+    return busy, traced, ticked, warm_up_lost
+
+
+def window_widths(session, queries) -> list:
+    """The probe windows' shapes, ``[nq, n_segments * m_cap]``, of one
+    unfused run of every query."""
+    from repro_torch.core.match import MatchEngine
+    fan_out = MatchEngine._fan_out
+    seen = set()
+
+    def spy(self, *args):
+        out = fan_out(self, *args)
+        seen.add(tuple(out[0].shape))
+        return out
+
+    MatchEngine._fan_out = spy
+    try:
+        run_all(session, queries, fused=False)
+    finally:
+        MatchEngine._fan_out = fan_out
+    return sorted(seen)
+
+
+def host_counts_ms(store, values) -> dict:
+    """Median ms of the store's planner counts over ``values``' hashes,
+    with tombstoned postings (capacities) and without (statistics)."""
+    from repro_torch.core.hashing import hash_array
+    h = np.unique(hash_array(values))
+    out = {"values": int(len(h))}
+    for live_only in (False, True):
+        times = []
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            store.host_counts(h, live_only=live_only)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["live_only_ms" if live_only else "all_ms"] = \
+            statistics.median(times)
+    return out
+
+
+def check_live_kernels(session, queries) -> dict:
+    """Every distinct argument shape the live path hands each kernel
+    (``record_kernel_inputs`` on the live store), the kernel equal to its
+    plain version there.  These comparison launches are taken back off
+    the counters."""
+    counts = kernel_launches()
+    _, _, shapes = record_kernel_inputs(session, queries)
+    checked = {}
+    for name, (mod, attr, plain, *_rest) in KERNELS.items():
+        wrapper = getattr(mod, attr)
+        checked[name] = []
+        for args, kwargs in shapes[name].values():
+            plain_kwargs = {"min_support": kwargs["min_support"]} \
+                if "min_support" in kwargs else {}
+            got = wrapper(*args, **kwargs)
+            want = plain(*args, **plain_kwargs)
+            torch.cuda.synchronize()
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at {list(got.shape)} on "
+                                     f"the live path")
+            checked[name].append([list(a.shape) for a in args
+                                  if torch.is_tensor(a)])
+    for (mod, attr, *_rest), n in zip(KERNELS.values(), counts.values()):
+        getattr(mod, attr).launches = n
+    del shapes
+    gc.collect()
+    emit({"phase": "live_kernels", "equal": True,
+          "shapes": checked})
+    return {name: len(c) for name, c in checked.items()}
+
+
+def rebuild_parity(session, queries, results) -> float:
+    """The live results equal a static ``sorted`` session over the live
+    tables, ids and scores mapped through ``live_ids()`` (the JAX
+    package's own acceptance of a live lake).  Returns its build seconds."""
+    live_ids = session.live.live_ids()
+    tables = session.live.tables
+    t0 = time.perf_counter()
+    static = blend.connect(DataLake([tables[t] for t in live_ids]),
+                           backend="sorted")
+    build_s = time.perf_counter() - t0
+    bad = []
+    for label, q in queries.items():
+        got, want = results[label], run_query(static, q)
+        slots = torch.tensor(live_ids, device=got.scores.device)
+        rest = torch.ones_like(got.scores, dtype=torch.bool)
+        rest[slots] = False
+        if [live_ids[t] for t in want.ids] != got.ids or \
+                not torch.equal(got.scores[slots], want.scores) or \
+                bool(got.scores[rest].any()):
+            bad.append(label)
+    del static
+    gc.collect()
+    if bad:
+        raise AssertionError(f"live results differ from the rebuild: {bad}")
+    return build_s
+
+
+def run_live_path(lake, queries, static_results, static_connect_s) -> tuple:
+    """Phase 5: ``connect(lake, live=True, wal=...)`` on the smoke lake,
+    the mutation steps (module docstring), each checked and timed; the
+    rebuild parity; ``compact``; ``recover`` from the snapshot and the
+    WAL.  Returns (each kernel's launches in the phase, the number of
+    distinct inputs of each checked against its plain version)."""
+    tmp = Path(tempfile.mkdtemp(prefix="blend-live-"))
+    wal, snap = tmp / "lake.wal", tmp / "lake.snap"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = blend.connect(lake, live=True, backend="bucket", wal=str(wal))
+    connect_s = time.perf_counter() - t0
+    checker = Executor(session.live.store, backend="sorted")
+    adds = live_tables(LIVE_ADDS, 1, "live_add_")
+    guard = live_tables(1, 2, "live_guard_")[0]
+    queries = {**queries, **guard_queries(guard)}
+    # the tables phase 3's answers rank first: dropping them shows
+    drops = list(dict.fromkeys(
+        t for label in ("sc", "kw", "mc", "corr")
+        for t in static_results[label].ids))[:LIVE_DROPS]
+    reset_launches()
+    steps, n = [], lake.n_tables
+
+    def step(name, mutate):
+        line, res = live_step(session, checker, queries, name, mutate)
+        steps.append(line)
+        return line, res
+
+    _, res = step("connect", lambda: None)
+    unfused = run_all(session, queries, fused=False)
+    for label, want in static_results.items():
+        for got in (res[label], unfused[label]):
+            if got.ids != want.ids or \
+                    not torch.equal(got.scores[:n], want.scores) or \
+                    bool(got.scores[n:].any()):
+                raise AssertionError(f"live {label} differs from phase 3")
+    step("add_tables", lambda: session.add_tables(adds))
+    _, res = step("drop_tables",
+                  lambda: [session.drop_table(t) for t in drops])
+    if any(t in r.ids for r in res.values() for t in drops):
+        raise AssertionError("a dropped table is still answered")
+    tid = {}
+    _, res = step("add_table",
+                  lambda: tid.setdefault("a", session.add_table(guard)))
+    check_guard(res, tid["a"], True, "add_table")
+    line, _ = step("snapshot", lambda: session.snapshot(str(snap)))
+    snap_ms = line["mutate_ms"]
+    snap_bytes = sum(p.stat().st_size for p in tmp.glob("lake.*")
+                     if p.suffix in (".npz", ".json"))
+    _, res = step("drop_table", lambda: session.drop_table(tid["a"]))
+    check_guard(res, tid["a"], False, "drop_table")
+    _, res = step("add_table_again", lambda: tid.setdefault(
+        "b", session.add_table(guard, name="live_guard_again")))
+    check_guard(res, tid["b"], True, "add_table_again")
+    _, res = step("drop_table_again", lambda: session.drop_table(tid["b"]))
+    check_guard(res, tid["b"], False, "drop_table_again")
+    _, res = step("add_table_seen_geometry", lambda: tid.setdefault(
+        "c", session.add_table(guard, name="live_guard_seen")))
+    check_guard(res, tid["c"], True, "add_table_seen_geometry")
+    for line in steps:
+        if line["step"] in ("drop_tables", "snapshot", "drop_table",
+                            "drop_table_again",
+                            "add_table_seen_geometry") and \
+                line["programs_built"]:
+            raise AssertionError(f"live step {line['step']} built "
+                                 f"{line['programs_built']} programs")
+
+    report = {"segments": steps[-1]["segments"],
+              "postings_per_segment": steps[-1]["postings_per_segment"],
+              "table_slots": steps[-1]["table_slots"],
+              "windows": window_widths(session, queries),
+              "host_counts": host_counts_ms(
+                  session.live.store, queries["sc"].values)}
+    _, traced, ticked, report["warm_up_launches_untraced"] = \
+        traced_launches(session, queries)
+    report["shapes_checked"] = check_live_kernels(session, queries)
+    rebuild_s = rebuild_parity(session, queries, res)
+
+    kept = res
+    _, res = step("compact", session.compact)
+    bad = [label for label in queries
+           if not same_result(res[label], kept[label])]
+    if bad:
+        raise AssertionError(f"compaction changed {bad}")
+    epoch, kept = session.live.epoch, res
+    del session, checker, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    back = blend.recover(str(snap), wal=str(wal), backend="bucket")
+    recover_s = time.perf_counter() - t0
+    got = run_all(back, queries, fused=True)
+    unfused = run_all(back, queries, fused=False)
+    bad = [label for label in queries
+           if not same_result(got[label], kept[label]) or
+           not same_result(unfused[label], kept[label])]
+    launches = kernel_launches()
+    recovered_epoch = back.live.epoch
+    emit({"phase": "live_summary", "connect_s": connect_s,
+          "static_connect_s": static_connect_s, "recover_s": recover_s,
+          "epoch": epoch, "recovered_epoch": recovered_epoch,
+          "snapshot_ms": snap_ms, "snapshot_bytes": snap_bytes,
+          "rebuild_connect_s": rebuild_s, "launches": launches,
+          "kernel_launches_traced": traced, "kernel_launches_ticked": ticked,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          **report})
+    del back, got, unfused, kept
+    shutil.rmtree(tmp, ignore_errors=True)
+    if bad or recovered_epoch != epoch:
+        raise AssertionError(f"recovered session differs: {bad}, epoch "
+                             f"{recovered_epoch} against {epoch}")
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"the live path never launched {idle}")
+    return launches, report["shapes_checked"]
 
 
 def superkey_digests(index):
@@ -950,9 +1368,9 @@ def main() -> int:
     emit({"phase": "index", "lake": LAKE, "lake_seconds": t1 - t0,
           "connect_seconds": t2 - t1, "postings": session.index.n_postings,
           "bucket_bits": session.index.bucket_bits,
-          "bucket_width": engine.config.bucket_width})
+          "bucket_width": engine.config.bucket_widths[0]})
     queries = make_queries(lake)
-    inputs, unfused_inputs = record_kernel_inputs(session, queries)
+    inputs, unfused_inputs, _ = record_kernel_inputs(session, queries)
 
     # the wide rows case and phase 4 keep the unfused MC stage's 256 query
     # digests and segment space
@@ -963,15 +1381,20 @@ def main() -> int:
     results, launches, _ = unfused
     check_results(session, results)
     fused_launches = run_fused_path(session, queries, unfused)
+    live_launches, live_shapes = run_live_path(
+        lake, queries, results, t2 - t1)
     for name, n in launches.items():
         rows[name]["launches"] = n
         rows[name]["fused_launches"] = fused_launches[name]
+        rows[name]["live_launches"] = live_launches[name]
+        rows[name]["live_shapes_checked"] = live_shapes[name]
 
     # phase 4 inputs from the smoke lake, then free phases 1-3
     queries_sk = (q_lo.clone(), q_hi.clone())
     rows_sk = superkey_digests(session.index)
     groups = unfused_inputs["qcr_segments"][0][0].numel()
     del session, engine, inputs, unfused_inputs, results, unfused, q_lo, q_hi
+    del lake
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

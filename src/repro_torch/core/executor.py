@@ -2,9 +2,11 @@
 
 The executor owns a ``MatchEngine`` (device index + probe backends) on one
 device, hashes query values through a cross-query memo cache, and runs the
-plan DAG.  ``optimize=False`` reproduces the paper's B-NO configuration:
-same seekers and combiners, insertion seeker order, no intermediate-result
-threading.
+plan DAG.  Over a LiveLake ``SegmentStore`` it refreshes the engine when
+the store's epoch moved, at the entry of each plan (one epoch per plan),
+into its own device arena (core/arena.py).  ``optimize=False`` reproduces
+the paper's B-NO configuration: same seekers and combiners, insertion
+seeker order, no intermediate-result threading.
 
 Match capacities are quantized to a small fixed ladder and query counts are
 padded to powers of two, exactly as in the JAX package, so both systems see
@@ -24,6 +26,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core import combiners as comb
 from repro_torch.core import seekers as seek
+from repro_torch.core.arena import Arena
 from repro_torch.core.cost_model import CostModel
 from repro_torch.core.hashing import MISSING, hash_value, row_superkey, \
     split_u64
@@ -38,6 +41,10 @@ from repro_torch.core.programs import Programs
 # from the same workload
 CAP_LADDER = (32, 128, 512, 1024)
 PAD_SENTINEL = MISSING                    # reserved: never a real cell hash
+# a live executor keeps the device programs of this many engine configs of
+# its arena generation, the most recently built; each program holds its
+# CUDA graph's own memory, so a stream of new geometries must not keep all
+RECENT_CONFIGS = 4
 
 
 @dataclass
@@ -115,9 +122,15 @@ def _pow2_at_least(n: int, lo: int = 8, hi: int = 1024) -> int:
 
 
 class Executor:
-    """Runs plans over a static ``UnifiedIndex`` on ``device`` (``None``
-    means CUDA and raises when no card is present; pass ``device="cpu"``
-    for the plain PyTorch path)."""
+    """Runs plans over a ``UnifiedIndex`` or a LiveLake ``SegmentStore`` on
+    ``device`` (``None`` means CUDA and raises when no card is present;
+    pass ``device="cpu"`` for the plain PyTorch path).
+
+    A store carries an ``epoch`` counter that every mutation bumps; the
+    executor compares it lazily at query entry and rebuilds its MatchEngine
+    when stale, so a Session over a live lake always observes a consistent
+    epoch without any mutation hook into the executor.  (The value-hash
+    memo survives refreshes: it is a pure function of cell values.)"""
 
     def __init__(self, index: UnifiedIndex, m_cap_max: int = 1024,
                  row_cap: int = 8, backend: str = "sorted",
@@ -125,11 +138,13 @@ class Executor:
         self.device = resolve_device(device)
         self.index = index
         self.backend = backend
-        self.engine = MatchEngine.from_index(
-            index, backend=backend, bucket_width=bucket_width,
-            device=self.device)
-        self.n_tables = index.n_tables
-        self.max_cols = index.max_cols
+        self.bucket_width = bucket_width
+        self.programs = Programs(self.device)     # the fused path's programs
+        self.arena = Arena(self.device)           # a live engine's storage
+        self._engine_epoch = None
+        self._recent: list = []                   # (generation, config)
+        self._in_plan = False
+        self._build_engine()
         self.m_cap_max = m_cap_max
         self.row_cap = row_cap
         rungs = {min(c, m_cap_max) for c in CAP_LADDER}
@@ -138,7 +153,50 @@ class Executor:
         self.cap_ladder = tuple(sorted(rungs))
         self._hash_cache: dict = {}
         self._hash_cache_max = 1 << 20
-        self.programs = Programs(self.device)     # the fused path's programs
+
+    # ---------------------------------------------------------- live engine
+    def _build_engine(self):
+        idx = self.index
+        if hasattr(idx, "segments"):       # LiveLake SegmentStore
+            if self.bucket_width is not None:
+                raise ValueError(
+                    "bucket_width is not configurable on a live store: "
+                    "each segment sizes its own lossless bucket layout")
+            self.engine = MatchEngine.from_store(idx, self.arena,
+                                                 backend=self.backend)
+            self._engine_epoch = idx.epoch
+            self._keep_recent_programs()
+        else:
+            self.engine = MatchEngine.from_index(
+                idx, backend=self.backend, bucket_width=self.bucket_width,
+                device=self.device)
+        self.n_tables = idx.n_tables
+        self.max_cols = idx.max_cols
+
+    def _keep_recent_programs(self):
+        """Drop the programs that read the engine, except those of the
+        current arena generation built for one of its last
+        ``RECENT_CONFIGS`` configs: a program of an older generation reads
+        freed buffers, and one of an older config holds memory that an
+        endless stream of geometries would otherwise pile up."""
+        now = (self.arena.generation, self.engine.config)
+        recent = [c for c in self._recent if c != now and c[0] == now[0]]
+        self._recent = recent[-(RECENT_CONFIGS - 1):] + [now]
+        keep = set(self._recent)
+        self.programs.drop_where(
+            lambda key: key[0] == "engine" and key[1:3] not in keep)
+
+    def refresh(self):
+        """Pick up index mutations: rebuild the engine iff the store epoch
+        moved (no-op for a static UnifiedIndex and for unchanged epochs)."""
+        ep = getattr(self.index, "epoch", None)
+        if ep is not None and ep != self._engine_epoch:
+            self._build_engine()
+
+    def program_key(self, *parts) -> tuple:
+        """Key of a device program that reads the engine: ``parts`` plus
+        the engine's static config and the arena generation it views."""
+        return ("engine", self.arena.generation, self.engine.config) + parts
 
     # ------------------------------------------------------------------ util
     def _put(self, a: np.ndarray) -> torch.Tensor:
@@ -182,17 +240,25 @@ class Executor:
         mask[:n] = True
         return self._put(hash_keys(hp)), self._put(mask)
 
+    def _stat_counts(self, h: np.ndarray) -> np.ndarray:
+        """Planner-statistics counts: on a live store, tombstoned postings
+        are excluded (they contribute no results, only probe-window slots),
+        so seeker ranking reflects the live lake."""
+        if hasattr(self.index, "segments"):
+            return self.index.host_counts(h, live_only=True)
+        return self.index.host_counts(h)
+
     def seeker_stats(self, spec: SeekerSpec):
         """(cardinality, n_cols, avg value frequency) — the cost features."""
         if spec.kind == "MC":
             freqs = []
             for c in range(spec.n_cols):
                 h = self._hashed([t[c] for t in spec.values])
-                freqs.append(self.index.host_counts(h).mean())
+                freqs.append(self._stat_counts(h).mean())
             avg = float(np.prod(freqs))
             return (float(len(spec.values)), float(spec.n_cols), avg)
         h = self._hashed(spec.values)
-        avg = float(self.index.host_counts(h).mean()) if len(h) else 0.0
+        avg = float(self._stat_counts(h).mean()) if len(h) else 0.0
         return (float(len(spec.values)), float(spec.n_cols), avg)
 
     def _quantize_cap(self, need: int) -> int:
@@ -208,6 +274,8 @@ class Executor:
     # --------------------------------------------------------------- seekers
     def run_seeker(self, spec: SeekerSpec, allowed=None,
                    sync: bool = True) -> comb.ResultSet:
+        if not self._in_plan:   # a running plan already pinned its epoch
+            self.refresh()
         self._last_launches = 1
         if spec.kind in ("SC", "KW"):
             h = self._hashed(spec.values)
@@ -304,14 +372,19 @@ class Executor:
         plan runs in ``~n_kinds + 1`` launches (``ExecInfo.launches``),
         bit-identical to the unfused walk."""
         _no_cache(cache)
-        if fused:
-            from repro_torch.core.fused import run_fused
-            rs, info = run_fused(self, [plan], optimize=optimize,
-                                 cost_model=cost_model)[0]
-            if sync:
-                self.synchronize()
-            return rs, info
-        return self._run(plan, optimize, cost_model, sync)
+        self.refresh()          # one consistent epoch for the whole plan
+        self._in_plan = True    # nested run_seeker calls must not re-refresh
+        try:
+            if fused:
+                from repro_torch.core.fused import run_fused
+                rs, info = run_fused(self, [plan], optimize=optimize,
+                                     cost_model=cost_model)[0]
+                if sync:
+                    self.synchronize()
+                return rs, info
+            return self._run(plan, optimize, cost_model, sync)
+        finally:
+            self._in_plan = False
 
     def run_many(self, plans, optimize: bool = True,
                  cost_model: CostModel | None = None, sync: bool = True,
@@ -322,8 +395,13 @@ class Executor:
         synchronizes."""
         from repro_torch.core.fused import run_fused
         _no_cache(cache)
-        out = run_fused(self, list(plans), optimize=optimize,
-                        cost_model=cost_model)
+        self.refresh()
+        self._in_plan = True
+        try:
+            out = run_fused(self, list(plans), optimize=optimize,
+                            cost_model=cost_model)
+        finally:
+            self._in_plan = False
         if sync:
             self.synchronize()
         return out

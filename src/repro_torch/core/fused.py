@@ -39,6 +39,11 @@ seeker count and the shared capacity window are quantized onto power-of-two
 / capacity ladders, and the DAG program is keyed on plan topology, so
 re-running any plan shape with new values of the same buckets builds no new
 program (``seekers.TRACE_COUNTS``, asserted in tests/test_torch_fused.py).
+A seeker group's key also holds the engine's ``EngineConfig`` (what the JAX
+package's jit sees) and the arena generation (``Executor.program_key``):
+on a live lake a mutation within a seen geometry reuses the program, whose
+replay reads the refilled arena (tests/test_torch_live.py,
+tests/test_torch_cuda.py).
 """
 from __future__ import annotations
 
@@ -311,13 +316,16 @@ def _launch_group(ex, key, tasks):
                           h_sample=key[1], sampling=key[2],
                           row_stride=ex.index.row_stride)
             fn = seek.c_seeker_seg
-    engine = ex.engine
     rec = otrace.current()
     with rec.span("shard:0", m_cap=m_cap, seekers=len(tasks)):
         t0 = time.perf_counter()
+        # keyed on the engine's config and arena generation: a program
+        # reads the engine's tensors, views of the arena that every refresh
+        # refills in place, so it is built (called) with the current engine
+        # and its replays read the current epoch
         scores, ovf = ex.programs.run(
-            (kind, width, tuple(sorted(static.items()))), kind + "_seg",
-            lambda *ops: fn(engine, *ops, **static), host)
+            ex.program_key(kind, width, tuple(sorted(static.items()))),
+            kind + "_seg", lambda *ops: fn(ex.engine, *ops, **static), host)
         ovf = ovf.clone()           # read lazily, after later replays
         if obs.sync_timing():
             ex.synchronize()

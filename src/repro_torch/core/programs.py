@@ -118,6 +118,12 @@ class Programs:
     def __len__(self) -> int:
         return len(self._programs)
 
+    def drop_where(self, pred):
+        """Forget the programs whose key (as passed to ``run``) satisfies
+        ``pred``."""
+        self._programs = {full: prog for full, prog in self._programs.items()
+                          if not pred(full[0])}
+
     def run(self, key: tuple, kind: str, fn, host=(), dev=()):
         """``fn(*host operands on the device, *dev)`` -> tuple of tensors,
         through the program for ``key`` (see the module docstring).

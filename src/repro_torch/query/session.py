@@ -12,9 +12,11 @@ rewrite rules, the ranked physical order and per-node timings.  Legacy
 physical ``Plan`` objects are accepted everywhere an expression is.
 
 ``query(fused=True)`` and ``query_many`` run on the fused path
-(core/fused.py).  This slice serves a static index with the query cache
-off; live lakes, the cache, sharding, the WAL, the approximate tier, the
-serving front tier and snapshot restore/recovery raise
+(core/fused.py).  ``connect(lake, live=True)`` serves a LiveLake
+(store/): the session gains ``add_table`` / ``add_tables`` /
+``drop_table`` / ``compact`` / ``snapshot``, ``restore`` reopens a
+snapshot and ``recover`` replays snapshot + write-ahead log.  The query
+cache, sharding, the approximate tier and the serving front tier raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -32,15 +34,12 @@ from repro_torch.query import logical as L
 from repro_torch.query.lower import lower
 from repro_torch.query.parse import parse
 from repro_torch.query.rules import prune_dead_nodes, rewrite
+from repro_torch.store.live import LiveLake
 
 _LATER = {
-    "live": "LiveLake on torch (ROADMAP queue A, item A4)",
     "cache": "the query cache (ROADMAP queue A, item A5)",
     "shards": "sharding (ROADMAP queue A, item A6)",
-    "wal": "LiveLake on torch with its WAL (ROADMAP queue A, item A4)",
     "approx": "the approximate tier (ROADMAP queue A, item A7)",
-    "restore": "LiveLake snapshots (ROADMAP queue A, item A4)",
-    "recover": "LiveLake crash recovery (ROADMAP queue A, item A4)",
     "server": "the serving front tier (ROADMAP queue A, item A5)",
 }
 
@@ -150,22 +149,59 @@ class Explain:
 
 class Session:
     """A connection to one lake: resident index, executor, cost model, and
-    the BlendQL compile pipeline (with a bounded compiled-plan memo)."""
+    the BlendQL compile pipeline (with a bounded compiled-plan memo).  Over
+    a live lake (``connect(lake, live=True)``) the Session also exposes the
+    mutation API — ``add_table`` / ``add_tables`` / ``drop_table`` /
+    ``compact`` / ``snapshot`` — and ``explain`` reports the index shape
+    (segments, postings, tombstones, epoch)."""
 
     def __init__(self, executor: Executor,
-                 cost_model: CostModel | None = None):
+                 cost_model: CostModel | None = None, live=None):
         self.executor = executor
         self.cost_model = cost_model
+        self.live = live                  # LiveLake handle or None
         self._plan_memo = {}
 
     @property
     def index(self):
         return self.executor.index
 
+    # ------------------------------------------------------------ mutations
+    def _require_live(self):
+        if self.live is None:
+            raise RuntimeError("this session is static; open one with "
+                               "repro_torch.connect(lake, live=True) to "
+                               "mutate")
+        return self.live
+
+    def add_table(self, table, name: str | None = None) -> int:
+        """Index one new table without a rebuild; returns its table id."""
+        return self._require_live().add_table(table, name=name)
+
+    def add_tables(self, tables, names=None) -> list:
+        """Bulk ingest: one WAL group commit covers the whole batch."""
+        return self._require_live().add_tables(tables, names=names)
+
+    def drop_table(self, ref) -> int:
+        """Drop a table (id or name): tombstoned, or whole-run removed."""
+        return self._require_live().drop_table(ref)
+
+    def compact(self, full: bool = True, reclaim_ids: bool = False):
+        """Merge delta segments off the hot path (store/compact.py)."""
+        return self._require_live().compact(full=full,
+                                            reclaim_ids=reclaim_ids)
+
+    def snapshot(self, path):
+        """Persist the compacted index; reload with ``repro_torch.restore``
+        or ``repro_torch.recover``."""
+        return self._require_live().snapshot(path)
+
     def index_shape(self) -> dict:
         """Observable index layout (also rendered by ``explain``); a static
         index is one segment at epoch 0."""
         idx = self.executor.index
+        if hasattr(idx, "shape"):
+            return idx.shape()
         return {"mode": "static", "epoch": 0, "segments": 1,
                 "postings_per_segment": [idx.n_postings],
                 "tables_per_segment": [idx.n_tables],
@@ -310,21 +346,61 @@ def connect(lake, cost_model: CostModel | None = None, live: bool = False,
     """Open a discovery session on a lake: builds the unified index and the
     executor (kwargs forwarded: ``backend=``, ``device=``, ``m_cap_max=``,
     ...), returning the Session handle that serves queries.  ``device=None``
-    means CUDA and raises when no card is present."""
-    for option, value in (("live", live), ("cache", cache),
-                          ("shards", shards), ("wal", wal)):
+    means CUDA and raises when no card is present.
+
+    With ``live=True`` the index is built as a LiveLake segment store
+    (store/): the session gains the mutation API and queries keep serving,
+    bit-identically to a from-scratch rebuild, while the lake evolves.
+    ``lake`` may also be an existing ``LiveLake``.  ``wal=`` (a path or
+    ``store.wal.WriteAheadLog``; requires ``live=True``) durably logs every
+    acknowledged mutation; reopen with :func:`recover`."""
+    for option, value in (("cache", cache), ("shards", shards)):
         if value:
             _not_ported(option)
+    if wal is not None and not live:
+        raise ValueError("wal= requires live=True (the WAL logs mutations)")
     # resolve the device before the (long) index build, so a missing card
     # fails fast
     executor_opts["device"] = resolve_device(executor_opts.get("device"))
+    if live:
+        if isinstance(lake, LiveLake):
+            ll = lake
+            if wal is not None:
+                raise ValueError("pass wal= when the LiveLake is built, "
+                                 "not when wrapping an existing one")
+        else:
+            ll = LiveLake(lake, wal=wal)
+        return Session(Executor(ll.store, **executor_opts),
+                       cost_model=cost_model, live=ll)
     executor = Executor(build_index(lake), **executor_opts)
     return Session(executor, cost_model=cost_model)
 
 
-def restore(path, **kwargs) -> Session:
-    _not_ported("restore")
+def restore(path, cost_model: CostModel | None = None, cache=False,
+            **executor_opts) -> Session:
+    """Open a live session from a snapshot (store/snapshot.py): no
+    re-indexing, the server restart path."""
+    if cache:
+        _not_ported("cache")
+    executor_opts["device"] = resolve_device(executor_opts.get("device"))
+    ll = LiveLake.restore(path)
+    return Session(Executor(ll.store, **executor_opts),
+                   cost_model=cost_model, live=ll)
 
 
-def recover(path=None, **kwargs) -> Session:
-    _not_ported("recover")
+def recover(path=None, *, wal=None, shards: int | None = None,
+            cost_model: CostModel | None = None, cache=False,
+            policy=None, **executor_opts) -> Session:
+    """Open a live session from durable state: the latest good snapshot
+    generation at ``path`` (if any; corrupt generations fall back, see
+    store/snapshot.py) plus a replay of every WAL record past the
+    snapshot's watermark (store/wal.py): the crash-recovery path.  The
+    recovered session answers queries with ids, scores and epoch
+    bit-identical to the uninterrupted run, and keeps logging to ``wal``.
+    ``shards=N`` only matters on a cold start with no snapshot."""
+    if cache:
+        _not_ported("cache")
+    executor_opts["device"] = resolve_device(executor_opts.get("device"))
+    ll = LiveLake.recover(path, wal=wal, shards=shards, policy=policy)
+    return Session(Executor(ll.store, **executor_opts),
+                   cost_model=cost_model, live=ll)

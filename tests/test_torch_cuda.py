@@ -3,7 +3,14 @@
 Every kernel test takes the ``cuda`` fixture, which skips without a card;
 the default-device test runs everywhere.  The fused path's tests check
 that a CUDA-graph replay equals an eager call, leaves earlier results as
-they were, captures nothing when warm, and ticks the launch counters.
+they were, captures nothing when warm, and ticks the launch counters.  The
+live lake's tests check that a program captured before a mutation within
+the same geometry answers the mutated lake (the arena is refilled in
+place), that live ``bucket`` equals live ``sorted`` and the CPU port
+through add, drop, compact and ``reclaim_ids``, that an arena growth drops
+the old generation's programs and still answers, that a stream of new
+geometries holds the device memory flat once the program cache is full,
+and that ``recover`` on the card equals the session it replaces.
 This file imports no JAX, so it runs on the H100 machine as it is:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
@@ -13,10 +20,10 @@ import torch
 
 import repro_torch as blend
 from repro_torch.core import seekers as seek
-from repro_torch.core.executor import Executor
+from repro_torch.core.executor import RECENT_CONFIGS, Executor
 from repro_torch.core.hashing import MISSING
 from repro_torch.core.index import build_index, hash_keys
-from repro_torch.core.lake import synthetic_lake
+from repro_torch.core.lake import Table, synthetic_lake
 from repro_torch.core.match import MatchEngine
 from repro_torch.core.plan import Combiners, Plan, Seekers
 from repro_torch.core.programs import Programs
@@ -278,7 +285,7 @@ def test_match_engine_defaults_to_the_card():
             MatchEngine.from_index(idx)
         return
     eng = MatchEngine.from_index(idx, backend="bucket")
-    assert eng.bucket_hashes.is_cuda
+    assert eng.bucket_hashes[0].is_cuda
     assert all(t.is_cuda for t in eng.dev.values() if torch.is_tensor(t))
 
 
@@ -391,3 +398,167 @@ def test_fused_replays_tick_the_launch_counters(fused_lake):
         ex.run(_fused_plan(lake, tab), fused=True)
         ticks.append([f.launches - b for f, b in zip(QUERY_WRAPPERS, before)])
     assert ticks[0] == ticks[1] and all(n > 0 for n in ticks[0])
+
+
+# ----------------------------------------------------------- the live lake
+
+def _guard_table(name, token):
+    """A table whose first column holds ``token``-derived cells only: a
+    ``kw`` over them ranks exactly this table.  Every guard table has the
+    same posting and numeric counts, so its delta segment has one geometry."""
+    return Table(name, [[f"{token}_{i}" for i in range(16)],
+                        [float(i) for i in range(16)]])
+
+
+def _live_pair(lake, backend="bucket", **kw):
+    """A live session on the card and one on the CPU, mutated alike."""
+    return (blend.connect(lake, live=True, backend=backend, **kw),
+            blend.connect(lake, live=True, backend="sorted", device="cpu"))
+
+
+def _same_on_both(pair, q, fused=True):
+    card, cpu = pair
+    got, want = card.query(q, fused=fused), cpu.query(q, fused=fused)
+    assert got.ids == want.ids
+    assert torch.equal(got.scores.cpu(), want.scores)
+    return got
+
+
+def test_live_stale_read_guard_on_card(fused_lake):
+    """A fused program captured before a mutation within the same geometry
+    answers the mutated lake when replayed after it (the arena is refilled
+    in place), and a result taken before the mutation is unchanged."""
+    lake, _ = fused_lake
+    pair = _live_pair(lake)
+    card = pair[0]
+    q = blend.kw(["guardx_0", "guardy_0"], k=5)
+    for s in pair:
+        s.add_table(_guard_table("gx", "guardx"))
+    first = _same_on_both(pair, q)               # captures the programs
+    tid = first.ids[0]
+    kept = (first.scores.clone(), list(first.ids))
+    for s in pair:
+        s.drop_table(tid)
+    assert _same_on_both(pair, q).ids == []
+    for s in pair:
+        assert s.add_table(_guard_table("gy", "guardy")) == tid
+    before = dict(seek.TRACE_COUNTS)
+    second = _same_on_both(pair, q)              # replays X's programs
+    assert dict(seek.TRACE_COUNTS) == before
+    assert second.ids == [tid]
+    assert card.live.store.table_names[tid] == "gy"
+    torch.cuda.synchronize()
+    assert torch.equal(first.scores, kept[0]) and first.ids == kept[1]
+    # a tombstone inside the base: alive changes, the geometry does not
+    base = blend.sc(list(lake.tables[3].columns[0][:8]), k=10)
+    assert 3 in _same_on_both(pair, base).ids
+    for s in pair:
+        s.drop_table(3)
+    before = dict(seek.TRACE_COUNTS)
+    assert 3 not in _same_on_both(pair, base).ids
+    assert dict(seek.TRACE_COUNTS) == before
+
+
+def test_live_bucket_equals_sorted_equals_cpu_on_card(fused_lake):
+    lake, _ = fused_lake
+    sessions = {b: blend.connect(lake, live=True, backend=b)
+                for b in ("bucket", "sorted")}
+    cpu = blend.connect(lake, live=True, backend="bucket", device="cpu")
+    everyone = list(sessions.values()) + [cpu]
+
+    def check():
+        plan = _fused_plan(lake, 2)
+        for fused in (False, True):
+            want = cpu.query(plan, fused=fused)
+            for s in sessions.values():
+                got = s.query(plan, fused=fused)
+                assert got.ids == want.ids
+                assert torch.equal(got.scores.cpu(), want.scores)
+
+    check()
+    for i in range(3):
+        t = synthetic_lake(n_tables=1, rows=16, cols=4, vocab=300,
+                           seed=40 + i).tables[0]
+        assert len({s.add_table(t, name=f"new{i}") for s in everyone}) == 1
+        check()
+    for tid in (4, 31):                  # a base tombstone, a delta run
+        for s in everyone:
+            s.drop_table(tid)
+        check()
+    for s in everyone:
+        s.compact()
+    check()
+    remaps = [s.compact(reclaim_ids=True) for s in everyone]
+    assert remaps[0] == remaps[1] == remaps[2]
+    check()
+
+
+def test_live_arena_growth_on_card(fused_lake):
+    lake, _ = fused_lake
+    pair = _live_pair(lake)
+    card = pair[0]
+    plan = _fused_plan(lake, 2)
+    _same_on_both(pair, plan)
+    gen = card.executor.arena.generation
+    big = synthetic_lake(n_tables=1, rows=3000, cols=4, vocab=300,
+                         seed=50).tables[0]
+    for s in pair:
+        s.add_table(big, name="big")
+    _same_on_both(pair, plan)
+    _same_on_both(pair, plan, fused=False)
+    assert card.executor.arena.generation == gen + 1
+    keys = [k[0] for k in card.executor.programs._programs
+            if k[0][0] == "engine"]
+    assert keys and all(k[1] == gen + 1 for k in keys)
+
+
+def test_live_program_memory_stays_flat_on_card(fused_lake):
+    """Adds and drops where every add is a geometry not seen before: once
+    the executor holds ``RECENT_CONFIGS`` configs' programs, each new one
+    evicts the oldest with its graphs' memory, so the device memory stops
+    growing; while it fills, each config's programs take memory."""
+    lake, _ = fused_lake
+    card = blend.connect(lake, live=True, backend="bucket")
+    ex = card.executor
+    plan = _fused_plan(lake, 2)
+    card.query(plan, fused=True)
+    mem = []
+    for i in range(RECENT_CONFIGS + 8):
+        t = synthetic_lake(n_tables=1, rows=8 + i, cols=4, vocab=300,
+                           seed=60 + i).tables[0]
+        tid = card.add_table(t, name=f"geometry{i}")
+        card.query(plan, fused=True)
+        card.drop_table(tid)                 # back to the base geometry
+        card.query(plan, fused=True)
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+        configs = {key[1:3] for key, *_ in ex.programs._programs
+                   if key[0] == "engine"}
+        assert len(configs) <= RECENT_CONFIGS
+    full = RECENT_CONFIGS - 2            # the base plus RECENT - 1 adds
+    per_config = (mem[full] - mem[0]) / full
+    assert per_config > 0
+    assert max(mem[full:]) - mem[full] < per_config
+
+
+def test_live_recover_on_card(fused_lake, tmp_path):
+    lake, _ = fused_lake
+    wal, snap_path = str(tmp_path / "lake.wal"), str(tmp_path / "lake.snap")
+    card = blend.connect(lake, live=True, backend="bucket", wal=wal)
+    card.snapshot(snap_path)
+    card.add_table(_guard_table("g0", "guardx"))
+    card.drop_table(5)
+    card.snapshot(snap_path)
+    card.add_table(_guard_table("g1", "guardy"))
+    card.drop_table(2)
+    plan = _fused_plan(lake, 3)
+    q = blend.kw(["guardx_1", "guardy_1"], k=5)
+    want = [card.query(x, fused=True) for x in (plan, q)]
+    epoch = card.live.epoch
+    del card
+    back = blend.recover(snap_path, wal=wal, backend="bucket")
+    assert back.live.epoch == epoch
+    for x, w in zip((plan, q), want):
+        got = back.query(x, fused=True)
+        assert got.ids == w.ids
+        assert torch.equal(got.scores, w.scores)

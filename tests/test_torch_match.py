@@ -121,8 +121,9 @@ def test_bucket_width_lossless_and_warp_padded():
         MatchEngine.from_index(idx, backend="btree", device="cpu")
     eng = MatchEngine.from_index(idx, backend="bucket", bucket_width=need + 1,
                                  device="cpu")
-    assert eng.config.bucket_width % 32 == 0
-    assert eng.config.bucket_width >= need + 1
-    assert eng.bucket_hashes.shape == (1 << idx.bucket_bits,
-                                       eng.config.bucket_width)
-    assert eng.bucket_hashes.dtype == eng.bucket_payload.dtype == torch.int32
+    assert eng.config.bucket_widths[0] % 32 == 0
+    assert eng.config.bucket_widths[0] >= need + 1
+    assert eng.bucket_hashes[0].shape == (1 << idx.bucket_bits,
+                                          eng.config.bucket_widths[0])
+    assert eng.bucket_hashes[0].dtype == eng.bucket_payload[0].dtype == \
+        torch.int32

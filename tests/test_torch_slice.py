@@ -185,14 +185,18 @@ def test_session_query_sql_explain_match_reference(sessions, backend):
         (ref_ex.ids, ref_ex.launches, ref_ex.overflow)
 
 
-def test_later_slices_raise_not_implemented(sessions):
+def test_later_slices_raise_not_implemented(sessions, tmp_path):
     lake, _, ports = sessions
     port = ports["sorted"]
     expr = blend.kw(["tok_1"])
-    for opts, item in (({"live": True}, "A4"), ({"cache": True}, "A5"),
-                       ({"shards": 2}, "A6"), ({"wal": "lake.wal"}, "A4")):
+    for opts, item in (({"cache": True}, "A5"), ({"shards": 2}, "A6"),
+                       ({"live": True, "shards": 2}, "A6"),
+                       ({"live": True, "cache": True}, "A5")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             blend.connect(lake, device="cpu", **opts)
+    from repro_torch.store import LiveLake
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A6"):
+        LiveLake.recover(str(tmp_path / "no.snap"), shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
         port.query(expr, approx=True)
     plan = port.compile(expr).plan
@@ -201,9 +205,6 @@ def test_later_slices_raise_not_implemented(sessions):
             port.executor.run(plan, cache=object(), fused=fused)
     with pytest.raises(NotImplementedError, match="ROADMAP.*A5"):
         port.executor.run_many([plan], cache=object())
-    for fn in (blend.restore, blend.recover):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*A4"):
-            fn("snap")
 
 
 # ------------------------------------ the static-index members of the surface
