@@ -79,7 +79,33 @@ Phases (each prints JSON lines):
    epoch equal to the session it replaces).  The launch counters are set
    to 0 at the phase's start and read at its end.
 
-A ``replaced_kernels`` line quotes, as constants not measured in the run,
+6. serve (run between 3b and 5, and at the end of 5): the serving tier
+   at the smoke lake's width.  ``DiscoveryEngine(session=<phase 3's
+   session>)``: ``serve`` of each query, fused and unfused, equals phase
+   3; ``serve_many`` of the eight, fused and unfused, equals eight
+   ``serve`` calls bit for bit and makes exactly one device-to-host copy
+   (the profiler's ``Memcpy DtoH`` records); p50 of 5 warm runs of each,
+   with the ``execute`` / ``drain`` / ``transfer`` split, and 0 captures
+   in the timed runs.  Then ``connect(lake, cache=True,
+   backend="bucket")``: a cold ``serve_many`` of the eight is all
+   ``miss`` and equals phase 3; a second pass is all ``hit``, equal, with
+   no kernel launched, no device activity in its trace and no program
+   built (hit p50 beside cold p50); ``sc | kw'`` (a new ``kw``) is
+   ``partial`` and equals phase 3's session; ``sc`` over A cached on the
+   fused path, ``sc`` over B (same width and capacity, so the same
+   programs replay with other values), then ``sc | corr`` served A's
+   ``sc`` from the cache and equals phase 3 (the aliasing guard).  Phase
+   5's ``recover`` opens its session with ``cache=True``: after a
+   ``drop_table`` and an ``add_table`` of the guard table the first query
+   is a ``miss``, the guard queries rank it first only while it is live,
+   and every answer equals the card's ``sorted`` executor on the same
+   store.  Every kernel input shape of the serving path is held to the
+   plain versions; peak device memory and the cache's device bytes are
+   printed.  The launch counters are set to 0 at the start of each part
+   and read at its end.
+
+Any phase that captures an empty CUDA graph fails: that warning is an
+error here.  A ``replaced_kernels`` line quotes, as constants not measured in the run,
 the device times of the superkey kernels this version replaced
 (``scripts/superkey_ab.py`` times another build against this one in one
 process).  The last two lines are the card's ``nvidia-smi`` name and power
@@ -96,6 +122,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -119,6 +146,8 @@ from repro_torch.kernels.qcr_score.ref import (  # noqa: E402
 from repro_torch.kernels.superkey_filter import ops as sk_ops  # noqa: E402
 from repro_torch.kernels.superkey_filter.ref import (  # noqa: E402
     superkey_filter_ref, superkey_filter_rows_ref)
+from repro_torch.obs import trace as otrace  # noqa: E402
+from repro_torch.serve.engine import DiscoveryEngine  # noqa: E402
 
 # Gittables' width (max_cols=8) and numeric share (25%), cut to 20k tables
 LAKE = dict(n_tables=20_000, rows=64, cols=8, numeric_cols=2, vocab=200_000,
@@ -137,6 +166,7 @@ F32_3XTF32_OPS_PER_S = TENSOR_TF32_OPS_PER_S / 3
 SEED = 0
 MARKER = "spin_kernel"        # the kernel torch.cuda._sleep launches
 TRACE_TRIES = 3               # profiled sessions a trace check may take
+ABSORBED = 16                 # kernels a profiled session starts with
 
 #: name -> (wrapper module, wrapper attribute, plain version, source, TPU kernel)
 KERNELS = {
@@ -267,12 +297,13 @@ def run_query(session, q, fused=False):
     return session.sql(q) if isinstance(q, str) else session.query(q)
 
 
-def record_kernel_inputs(session, queries):
+def record_kernel_inputs(session, queries, drive=None):
     """Warm-up pass that keeps, per kernel, the largest argument set the
     main path hands its wrapper, unfused through ``session`` and fused
     (each query, then all of them as one ``query_many``) through a
     throwaway bucket executor on the same index (so that no recording
-    wrapper stands in while the session's programs are captured).
+    wrapper stands in while the session's programs are captured); or, with
+    ``drive``, whatever ``drive()`` runs (on executors of its own).
     Returns (largest on either path, largest unfused, {kernel: {signature:
     input}} with one input per distinct argument shape seen)."""
     seen = {}
@@ -299,6 +330,9 @@ def record_kernel_inputs(session, queries):
         spy.launches = 0
         setattr(mod, attr, spy)
     try:
+        if drive is not None:
+            drive()
+            return {}, {}, shapes
         for q in queries.values():
             run_query(session, q)
         unfused = dict(seen)
@@ -352,9 +386,9 @@ def device_events(fn, iters):
     [records, device ms]} of the counted runs, {kernel: launches its
     wrapper ticked in them}, {kernel: launches of the first run its trace
     lacks}).  The profiler on the H100 machine drops the earliest device
-    records of a session (PERF.md section 6), so the first run absorbs
-    that loss and only what follows a marker kernel (``torch.cuda._sleep``)
-    is read; a session whose trace lost the marker too is run again, up
+    records of a session (PERF.md section 6), so ``ABSORBED`` small
+    kernels and the first run absorb that loss and only what follows a
+    marker kernel (``torch.cuda._sleep``) is read; a session whose trace lost the marker too is run again, up
     to ``TRACE_TRIES`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -362,6 +396,11 @@ def device_events(fn, iters):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # records for the profiler to drop first: a function that runs
+            # nothing on the card (a cache hit) would leave it the marker
+            absorb = torch.zeros(1, device="cuda")
+            for _ in range(ABSORBED):
+                absorb.add_(1)
             first = kernel_launches()
             fn()
             torch.cuda.synchronize()
@@ -901,13 +940,14 @@ def host_counts_ms(store, values) -> dict:
     return out
 
 
-def check_live_kernels(session, queries) -> dict:
-    """Every distinct argument shape the live path hands each kernel
-    (``record_kernel_inputs`` on the live store), the kernel equal to its
-    plain version there.  These comparison launches are taken back off
-    the counters."""
+def check_path_kernels(session, queries, phase="live_kernels",
+                       drive=None) -> dict:
+    """Every distinct argument shape a path hands each kernel
+    (``record_kernel_inputs`` on ``session``, or whatever ``drive``
+    runs), the kernel equal to its plain version there; one ``phase``
+    line.  These comparison launches are taken back off the counters."""
     counts = kernel_launches()
-    _, _, shapes = record_kernel_inputs(session, queries)
+    _, _, shapes = record_kernel_inputs(session, queries, drive)
     checked = {}
     for name, (mod, attr, plain, *_rest) in KERNELS.items():
         wrapper = getattr(mod, attr)
@@ -920,16 +960,15 @@ def check_live_kernels(session, queries) -> dict:
             torch.cuda.synchronize()
             if got.dtype != want.dtype or not torch.equal(got, want):
                 raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version at {list(got.shape)} on "
-                                     f"the live path")
+                                     f"version at {list(got.shape)} in "
+                                     f"{phase}")
             checked[name].append([list(a.shape) for a in args
                                   if torch.is_tensor(a)])
     for (mod, attr, *_rest), n in zip(KERNELS.values(), counts.values()):
         getattr(mod, attr).launches = n
     del shapes
     gc.collect()
-    emit({"phase": "live_kernels", "equal": True,
-          "shapes": checked})
+    emit({"phase": phase, "equal": True, "shapes": checked})
     return {name: len(c) for name, c in checked.items()}
 
 
@@ -963,9 +1002,11 @@ def rebuild_parity(session, queries, results) -> float:
 def run_live_path(lake, queries, static_results, static_connect_s) -> tuple:
     """Phase 5: ``connect(lake, live=True, wal=...)`` on the smoke lake,
     the mutation steps (module docstring), each checked and timed; the
-    rebuild parity; ``compact``; ``recover`` from the snapshot and the
-    WAL.  Returns (each kernel's launches in the phase, the number of
-    distinct inputs of each checked against its plain version)."""
+    rebuild parity; ``compact``; ``recover(..., cache=True)`` from the
+    snapshot and the WAL, then phase 6's live cache steps on it.  Returns
+    (each kernel's launches in the phase, the number of distinct inputs of
+    each checked against its plain version, the live cache steps'
+    launches)."""
     tmp = Path(tempfile.mkdtemp(prefix="blend-live-"))
     wal, snap = tmp / "lake.wal", tmp / "lake.snap"
     torch.cuda.synchronize()
@@ -1036,7 +1077,7 @@ def run_live_path(lake, queries, static_results, static_connect_s) -> tuple:
                   session.live.store, queries["sc"].values)}
     _, traced, ticked, report["warm_up_launches_untraced"] = \
         traced_launches(session, queries)
-    report["shapes_checked"] = check_live_kernels(session, queries)
+    report["shapes_checked"] = check_path_kernels(session, queries)
     rebuild_s = rebuild_parity(session, queries, res)
 
     kept = res
@@ -1050,9 +1091,12 @@ def run_live_path(lake, queries, static_results, static_connect_s) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    back = blend.recover(str(snap), wal=str(wal), backend="bucket")
+    back = blend.recover(str(snap), wal=str(wal), backend="bucket",
+                         cache=True)
     recover_s = time.perf_counter() - t0
     got = run_all(back, queries, fused=True)
+    misses = [r.cache.status for r in got.values()].count("miss")
+    back.cache.clear()                   # the unfused pass runs cold too
     unfused = run_all(back, queries, fused=False)
     bad = [label for label in queries
            if not same_result(got[label], kept[label]) or
@@ -1065,8 +1109,12 @@ def run_live_path(lake, queries, static_results, static_connect_s) -> tuple:
           "snapshot_ms": snap_ms, "snapshot_bytes": snap_bytes,
           "rebuild_connect_s": rebuild_s, "launches": launches,
           "kernel_launches_traced": traced, "kernel_launches_ticked": ticked,
+          "recovered_misses": misses,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           **report})
+    serve_launches = None
+    if not bad and recovered_epoch == epoch:
+        serve_launches = serve_live_cache(back, queries, guard, tid["c"])
     del back, got, unfused, kept
     shutil.rmtree(tmp, ignore_errors=True)
     if bad or recovered_epoch != epoch:
@@ -1075,7 +1123,306 @@ def run_live_path(lake, queries, static_results, static_connect_s) -> tuple:
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"the live path never launched {idle}")
-    return launches, report["shapes_checked"]
+    return launches, report["shapes_checked"], serve_launches
+
+
+# ----------------------------------------------------------- phase 6: serve
+
+def same_response(resp, want) -> bool:
+    """A ``DiscoveryResponse`` equals a ``QueryResult``: ids and scores."""
+    return resp.table_ids == want.ids and \
+        np.array_equal(resp.scores, want.scores.cpu().numpy())
+
+
+def same_responses(a, b) -> bool:
+    return a.table_ids == b.table_ids and a.overflow == b.overflow and \
+        a.scores.dtype == b.scores.dtype and np.array_equal(a.scores,
+                                                           b.scores)
+
+
+def device_copies(events, kind="Memcpy DtoH") -> int:
+    return sum(n for name, (n, _) in events.items() if name.startswith(kind))
+
+
+def serve_split(engine, batch, fused) -> dict:
+    """One warm ``serve_many`` under a span recorder: wall ms and its
+    ``execute`` / ``drain`` / ``transfer`` spans' ms."""
+    rec = otrace.Recorder()
+    t0 = time.perf_counter()
+    with otrace.recording(rec):
+        engine.serve_many(batch, fused=fused)
+    out = {"wall": (time.perf_counter() - t0) * 1e3}
+    for span in rec.roots:
+        out[span.name] = span.duration * 1e3
+    return out
+
+
+def other_values(lake, index, values, seed):
+    """As many distinct cells as ``values`` holds: its more frequent half,
+    and cells of other tables of the lake no more frequent than its most
+    frequent one.  An ``sc`` over them has the width and capacity of one
+    over ``values`` (the same programs) and other answers."""
+    from repro_torch.core.hashing import hash_array
+    vals = list(dict.fromkeys(values))
+    counts = index.host_counts(hash_array(vals))
+    top = int(counts.max())
+    out = [vals[i] for i in np.argsort(-counts, kind="stable")
+           [:len(vals) // 2]]
+    seen = set(vals)
+    rng = np.random.default_rng(seed)
+    n_cat = LAKE["cols"] - LAKE["numeric_cols"]
+    while len(out) < len(vals):
+        t = lake.tables[int(rng.integers(lake.n_tables))]
+        cell = t.columns[int(rng.integers(n_cat))][int(rng.integers(
+            t.n_rows))]
+        if cell not in seen and \
+                int(index.host_counts(hash_array([cell]))[0]) <= top:
+            seen.add(cell)
+            out.append(cell)
+    return out
+
+
+def cache_device_bytes(cache) -> int:
+    """Device bytes the cache's result and seeker entries hold (each
+    tensor storage once)."""
+    seen = {}
+    for level in (cache.results, cache.seekers):
+        for entry in level.data.values():
+            rs = entry.value.result
+            for t in (rs.scores, rs.mask):
+                seen[t.untyped_storage().data_ptr()] = t.untyped_storage(
+                ).nbytes()
+    return sum(seen.values())
+
+
+def serve_engine(session, queries, unfused) -> dict:
+    """Phase 6, engine: ``serve`` and ``serve_many`` on phase 3's session
+    (checked, timed, one device-to-host copy per batch)."""
+    results, _, p50_unfused = unfused
+    engine = DiscoveryEngine(None, session=session)
+    batch = list(queries.values())
+    bad = []
+    for fused in (False, True):          # warm: builds what is missing
+        serial = [engine.serve(q, fused=fused) for q in batch]
+        bad += [f"serve {label} fused={fused}" for label, r in
+                zip(queries, serial) if not same_response(r, results[label])]
+        many = engine.serve_many(batch, fused=fused)
+        bad += [f"serve_many {label} fused={fused}" for label, a, b in
+                zip(queries, serial, many) if not same_responses(a, b)]
+    torch.cuda.synchronize()
+    built0 = sum(seek.TRACE_COUNTS.values())
+    line = {"phase": "serve_engine", "repeats": REPEATS}
+    for fused in (False, True):
+        key = "fused" if fused else "unfused"
+        p50 = {}
+        for label, q in queries.items():
+            times = []
+            for _ in range(REPEATS):
+                t0 = time.perf_counter()
+                engine.serve(q, fused=fused)
+                times.append((time.perf_counter() - t0) * 1e3)
+            p50[label] = statistics.median(times)
+        splits = [serve_split(engine, batch, fused) for _ in range(REPEATS)]
+        line[f"serve_p50_ms_{key}"] = p50
+        line[f"serve_many_p50_ms_{key}"] = {
+            part: statistics.median(sp[part] for sp in splits)
+            for part in ("wall", "execute", "drain", "transfer")}
+        _, events, _, _ = device_events(
+            lambda: engine.serve_many(batch, fused=fused), 1)
+        line[f"serve_many_dtoh_copies_{key}"] = device_copies(events)
+        line[f"serve_many_htod_copies_{key}"] = device_copies(
+            events, "Memcpy HtoD")
+    line["phase3_p50_ms"] = p50_unfused
+    line["captures_in_timed_runs"] = sum(seek.TRACE_COUNTS.values()) - built0
+    emit(line)
+    if bad:
+        raise AssertionError(f"serving differs: {bad}")
+    if line["captures_in_timed_runs"]:
+        raise AssertionError("programs captured in timed serve runs")
+    copies = [line[f"serve_many_dtoh_copies_{k}"] for k in ("unfused",
+                                                            "fused")]
+    if copies != [1, 1]:
+        raise AssertionError(f"serve_many made {copies} device-to-host "
+                             f"copies, not one each")
+    return line
+
+
+def serve_cache(lake, session, queries, unfused) -> dict:
+    """Phase 6, static cache: cold, hit, partial and the aliasing guard on
+    ``connect(lake, cache=True, backend="bucket")``."""
+    results = unfused[0]
+    t0 = time.perf_counter()
+    cached = blend.connect(lake, cache=True, backend="bucket")
+    connect_s = time.perf_counter() - t0
+    cache = cached.cache
+    engine = DiscoveryEngine(None, session=cached)
+    batch = list(queries.values())
+    bad = []
+    cold = engine.serve_many(batch, fused=True)
+    after_cold = {"entries": cache.entries,
+                  "resident_bytes": cache.resident_bytes,
+                  "device_bytes": cache_device_bytes(cache)}
+    statuses = {"cold": [r.cache["status"] for r in cold]}
+    bad += [f"cold {label}" for label, r in zip(queries, cold)
+            if not same_response(r, results[label])]
+    # the hit pass: nothing launched, built or traced on the device
+    before = (kernel_launches(), sum(seek.TRACE_COUNTS.values()))
+    hits = [cached.query(q) for q in batch]
+    launched = {k: v - before[0][k] for k, v in kernel_launches().items()}
+    built = sum(seek.TRACE_COUNTS.values()) - before[1]
+    statuses["hit"] = [r.cache.status for r in hits]
+    bad += [f"hit {label}" for label, r in zip(queries, hits)
+            if not same_result(r, results[label])]
+    _, hit_events, _, _ = device_events(
+        lambda: [cached.query(q) for q in batch], 1)
+    p50 = {}
+    for label, q in queries.items():
+        cold_t, hit_t = [], []
+        for _ in range(REPEATS):
+            cache.clear()
+            t0 = time.perf_counter()
+            cached.query(q).ids
+            torch.cuda.synchronize()
+            cold_t.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            cached.query(q).ids
+            hit_t.append((time.perf_counter() - t0) * 1e3)
+        p50[label] = {"cold": statistics.median(cold_t),
+                      "hit": statistics.median(hit_t)}
+    # partial: ``sc`` from the cache, a new ``kw`` run
+    kw_new = blend.kw(other_values(lake, cached.index,
+                                   queries["kw"].values, SEED + 3))
+    partial_q = queries["sc"] | kw_new
+    cache.clear()
+    cached.query(queries["sc"])
+    part = cached.query(partial_q)
+    part_want = session.query(partial_q)
+    if part.cache.status != "partial" or not same_result(part, part_want):
+        bad.append(f"partial ({part.cache.status})")
+    # the aliasing guard: A's cached sc outlives a replay of its programs
+    cache.clear()
+    sc_a, corr = queries["sc"], queries["corr"]
+    sc_b = blend.sc(other_values(lake, cached.index, sc_a.values, SEED + 4))
+    cached.query(sc_a, fused=True)
+    built0 = sum(seek.TRACE_COUNTS.values())
+    b = cached.query(sc_b, fused=True)
+    torch.cuda.synchronize()
+    alias = {"b_programs_built": sum(seek.TRACE_COUNTS.values()) - built0,
+             "b_differs": not torch.equal(b.scores, results["sc"].scores)}
+    spec = cached.compile(sc_a).plan.nodes["sc0"].spec
+    entry = cache.get_seeker(cache.seeker_key(spec))
+    alias["entry_equal"] = torch.equal(entry.result.scores,
+                                       results["sc"].scores)
+    r = cached.query(sc_a | corr, fused=True)
+    alias["status"] = r.cache.status
+    alias["equal"] = same_result(r, results["sc | corr"])
+    line = {"phase": "serve_cache", "connect_s": connect_s,
+            "statuses": statuses, "hit_kernel_launches": launched,
+            "hit_programs_built": built,
+            "hit_device_events": sum(n for n, _ in hit_events.values()),
+            "p50_ms": p50, "repeats": REPEATS,
+            "after_cold": after_cold,
+            "partial": {**part.cache.as_dict()}, "aliasing_guard": alias,
+            "entries": cache.entries, "resident_bytes": cache.resident_bytes,
+            "evictions": cache.evictions,
+            "device_bytes": cache_device_bytes(cache)}
+    emit(line)
+    if statuses["cold"] != ["miss"] * len(batch) or \
+            statuses["hit"] != ["hit"] * len(batch):
+        bad.append(f"statuses {statuses}")
+    if any(launched.values()) or built or line["hit_device_events"]:
+        bad.append("a hit touched the device")
+    if alias["b_programs_built"] or not alias["b_differs"] or \
+            not alias["entry_equal"] or alias["status"] != "partial" or \
+            not alias["equal"]:
+        bad.append(f"aliasing guard {alias}")
+    if bad:
+        raise AssertionError(f"the cached session differs: {bad}")
+    del cached, engine, cold, hits
+    gc.collect()
+    return line
+
+
+def serve_live_cache(back, queries, guard, guard_tid) -> dict:
+    """Phase 6, live cache, on phase 5's recovered session (opened with
+    ``cache=True``): a ``drop_table`` and an ``add_table`` of the guard;
+    after each the first query is a ``miss``, a second pass is all hits,
+    and every answer equals the card's ``sorted`` executor on the same
+    store.  Returns each kernel's launches in it."""
+    reset_launches()
+    checker = Executor(back.live.store, backend="sorted")
+    tid = guard_tid
+    steps, bad = [], []
+    for step, live in (("drop_guard", False), ("add_guard", True)):
+        if live:
+            tid = back.add_table(guard, name="live_guard_cached")
+        else:
+            back.drop_table(tid)
+        first = [back.query(q) for q in queries.values()]
+        again = [back.query(q) for q in queries.values()]
+        res = dict(zip(queries, first))
+        check_guard(res, tid, live, step)
+        for label, a, b in zip(queries, first, again):
+            rs, _ = checker.run(a.compiled.plan)
+            if not torch.equal(rs.scores, a.scores) or \
+                    [int(t) for t in rs.ids()] != a.ids or \
+                    not same_result(a, b):
+                bad.append(f"{step} {label}")
+        steps.append({"step": step, "first": first[0].cache.status,
+                      "statuses": [r.cache.status for r in first],
+                      "again": [r.cache.status for r in again]})
+        if first[0].cache.status != "miss" or \
+                any(r.cache.status != "hit" for r in again):
+            bad.append(f"{step} statuses")
+    launches = kernel_launches()
+    emit({"phase": "serve_live_cache", "steps": steps, "launches": launches,
+          "invalidations": back.cache.invalidations,
+          "entries": back.cache.entries,
+          "device_bytes": cache_device_bytes(back.cache)})
+    if bad:
+        raise AssertionError(f"the live cached session differs: {bad}")
+    return launches
+
+
+def record_serve(index, queries):
+    """The serving path's kernel inputs: ``serve`` and ``serve_many``,
+    fused and unfused, on a throwaway engine over ``index``."""
+    def drive():
+        engine = DiscoveryEngine(None, session=blend.Session(
+            Executor(index, backend="bucket")))
+        batch = list(queries.values())
+        for fused in (False, True):
+            for q in batch:
+                engine.serve(q, fused=fused)
+            engine.serve_many(batch, fused=fused)
+        torch.cuda.synchronize()
+    return drive
+
+
+def run_serve_path(lake, session, queries, unfused) -> tuple:
+    """Phase 6 on the static lake (module docstring): the engine, the
+    cache, the kernels at the serving path's inputs.  Returns (each
+    kernel's launches in it, the number of distinct inputs of each checked
+    against its plain version)."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    serve_engine(session, queries, unfused)
+    serve_cache(lake, session, queries, unfused)
+    launches = kernel_launches()
+    shapes = check_path_kernels(session, queries, "serve_kernels",
+                                record_serve(session.index, queries))
+    emit({"phase": "serve_summary", "seconds": time.perf_counter() - t0,
+          "launches": launches,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"the serving path never launched {idle}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, shapes
 
 
 def superkey_digests(index):
@@ -1352,6 +1699,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # a program that captured nothing would serve stale buffers
+    warnings.filterwarnings("error", message=".*CUDA Graph is empty.*")
     card = card_line()
     emit({"phase": "setup", "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -1381,13 +1730,18 @@ def main() -> int:
     results, launches, _ = unfused
     check_results(session, results)
     fused_launches = run_fused_path(session, queries, unfused)
-    live_launches, live_shapes = run_live_path(
+    serve_launches, serve_shapes = run_serve_path(lake, session, queries,
+                                                  unfused)
+    live_launches, live_shapes, live_serve = run_live_path(
         lake, queries, results, t2 - t1)
     for name, n in launches.items():
         rows[name]["launches"] = n
         rows[name]["fused_launches"] = fused_launches[name]
         rows[name]["live_launches"] = live_launches[name]
         rows[name]["live_shapes_checked"] = live_shapes[name]
+        rows[name]["serve_launches"] = serve_launches[name] + \
+            live_serve[name]
+        rows[name]["serve_shapes_checked"] = serve_shapes[name]
 
     # phase 4 inputs from the smoke lake, then free phases 1-3
     queries_sk = (q_lo.clone(), q_hi.clone())

@@ -43,8 +43,9 @@ CAP_LADDER = (32, 128, 512, 1024)
 PAD_SENTINEL = MISSING                    # reserved: never a real cell hash
 # a live executor keeps the device programs of this many engine configs of
 # its arena generation, the most recently built; each program holds its
-# CUDA graph's own memory, so a stream of new geometries must not keep all
-RECENT_CONFIGS = 4
+# static inputs and outputs (core/programs.py), so a stream of new
+# geometries must not keep all
+RECENT_CONFIGS = 8
 
 
 @dataclass
@@ -62,8 +63,9 @@ class ExecInfo:
     node_seconds: dict = field(default_factory=dict)
     order: list = field(default_factory=list)
     overflow_parts: list = field(default_factory=list)
-    # seeker nodes served from a subplan cache (none until the query cache
-    # is ported) vs actually dispatched
+    # query-cache accounting (serve/cache.py): seeker nodes served from the
+    # subplan cache vs actually dispatched; ``serve_many`` excludes exact
+    # result-cache hits from its drain, a partial request keeps its share
     cached_nodes: list = field(default_factory=list)
     seeker_runs: int = 0
     # device-program dispatch count: on the unfused path every seeker call
@@ -90,28 +92,42 @@ class ExecInfo:
         """Resolve many infos' overflow totals in ONE device-to-host copy,
         deduping shared vectors (a fused group's overflow vector is shared
         by every plan of a ``run_many`` batch)."""
-        todo = [i for i in infos if i._overflow is None]
-        vecs: dict = {}
-        for i in todo:
-            for p in i.overflow_parts:
-                v = p.vec if isinstance(p, OverflowSlice) else p
-                vecs.setdefault(id(v), v)
+        vecs = ExecInfo.overflow_vectors(infos)
         host: dict = {}
         if vecs:
-            flat = torch.cat([v.reshape(-1).to(torch.int64)
-                              for v in vecs.values()]).cpu().numpy()
+            flat = torch.cat(list(vecs.values())).cpu().numpy()
             off = 0
             for k, v in vecs.items():
                 host[k] = flat[off:off + v.numel()]
                 off += v.numel()
-        for i in todo:
-            total = 0
-            for p in i.overflow_parts:
-                if isinstance(p, OverflowSlice):
-                    total += int(host[id(p.vec)][p.rows].sum())
-                else:
-                    total += int(host[id(p)].sum())
-            i._overflow = total
+        ExecInfo.resolve_overflow(infos, host)
+
+    @staticmethod
+    def overflow_vectors(infos) -> dict:
+        """{id of a part's vector: that vector as flat int64} over the
+        parts of the infos not yet resolved, each shared vector once."""
+        vecs: dict = {}
+        for i in infos:
+            if i._overflow is None:
+                for p in i.overflow_parts:
+                    v = p.vec if isinstance(p, OverflowSlice) else p
+                    if id(v) not in vecs:
+                        vecs[id(v)] = v.reshape(-1).to(torch.int64)
+        return vecs
+
+    @staticmethod
+    def resolve_overflow(infos, host: dict):
+        """Set each unresolved info's total from ``host``, {id as in
+        ``overflow_vectors``: that vector on the host}."""
+        for i in infos:
+            if i._overflow is None:
+                total = 0
+                for p in i.overflow_parts:
+                    if isinstance(p, OverflowSlice):
+                        total += int(host[id(p.vec)][p.rows].sum())
+                    else:
+                        total += int(host[id(p)].sum())
+                i._overflow = total
 
 
 def _pow2_at_least(n: int, lo: int = 8, hi: int = 1024) -> int:
@@ -176,11 +192,16 @@ class Executor:
     def _keep_recent_programs(self):
         """Drop the programs that read the engine, except those of the
         current arena generation built for one of its last
-        ``RECENT_CONFIGS`` configs: a program of an older generation reads
-        freed buffers, and one of an older config holds memory that an
-        endless stream of geometries would otherwise pile up."""
+        ``RECENT_CONFIGS`` configs.  A program of an older generation reads
+        freed buffers, so a new generation drops every program with the
+        graph memory pool they share; an older config's programs hold
+        their static inputs and outputs, which an endless stream of
+        geometries would otherwise pile up."""
         now = (self.arena.generation, self.engine.config)
-        recent = [c for c in self._recent if c != now and c[0] == now[0]]
+        if self._recent and self._recent[-1][0] != now[0]:
+            self.programs.clear()
+            self._recent = []
+        recent = [c for c in self._recent if c != now]
         self._recent = recent[-(RECENT_CONFIGS - 1):] + [now]
         keep = set(self._recent)
         self.programs.drop_where(
@@ -370,19 +391,23 @@ class Executor:
         ``fused=True`` through core/fused.py, all same-kind seekers as one
         batched device program and the combiner DAG as one more, so the
         plan runs in ``~n_kinds + 1`` launches (``ExecInfo.launches``),
-        bit-identical to the unfused walk."""
-        _no_cache(cache)
+        bit-identical to the unfused walk.  ``cache`` is an optional query
+        cache (duck-typed ``seeker_key`` / ``get_seeker`` / ``put_seeker``,
+        serve/cache.py): unrestricted seeker runs are served from and
+        stored into its subplan level; a seeker that would run under a
+        threaded optimizer mask still runs, so a partially cached plan is
+        bit-identical to a cold run."""
         self.refresh()          # one consistent epoch for the whole plan
         self._in_plan = True    # nested run_seeker calls must not re-refresh
         try:
             if fused:
                 from repro_torch.core.fused import run_fused
                 rs, info = run_fused(self, [plan], optimize=optimize,
-                                     cost_model=cost_model)[0]
+                                     cost_model=cost_model, cache=cache)[0]
                 if sync:
                     self.synchronize()
                 return rs, info
-            return self._run(plan, optimize, cost_model, sync)
+            return self._run(plan, optimize, cost_model, sync, cache)
         finally:
             self._in_plan = False
 
@@ -394,19 +419,19 @@ class Executor:
         ExecInfo)] aligned with ``plans``; with ``sync=False`` nothing
         synchronizes."""
         from repro_torch.core.fused import run_fused
-        _no_cache(cache)
         self.refresh()
         self._in_plan = True
         try:
             out = run_fused(self, list(plans), optimize=optimize,
-                            cost_model=cost_model)
+                            cost_model=cost_model, cache=cache)
         finally:
             self._in_plan = False
         if sync:
             self.synchronize()
         return out
 
-    def _run(self, plan: Plan, optimize: bool, cost_model, sync: bool):
+    def _run(self, plan: Plan, optimize: bool, cost_model, sync: bool,
+             cache=None):
         info = ExecInfo(optimized=optimize)
         ep = optimize_plan(plan, self.seeker_stats, cost_model) if optimize \
             else None
@@ -418,12 +443,24 @@ class Executor:
 
         def timed_seeker(name, spec, allowed=None):
             t0 = time.perf_counter()
-            rs = self.run_seeker(spec, allowed=allowed, sync=sync)
-            if sync_time and not sync:
-                self.synchronize()
-            info.seeker_runs += 1
-            info.launches += self._last_launches
-            info.overflow_parts.append(self._last_overflow)
+            hit = key = None
+            if cache is not None and allowed is None:
+                key = cache.seeker_key(spec)
+                hit = cache.get_seeker(key)
+            if hit is not None:
+                rs = hit.result
+                info.overflow_parts.append(hit.overflow)
+                info.cached_nodes.append(name)
+            else:
+                rs = self.run_seeker(spec, allowed=allowed, sync=sync)
+                if sync_time and not sync:
+                    self.synchronize()
+                info.seeker_runs += 1
+                info.launches += self._last_launches
+                info.overflow_parts.append(self._last_overflow)
+                if key is not None:
+                    cache.put_seeker(key, rs, self._last_overflow,
+                                     self.n_tables)
             info.node_seconds[name] = time.perf_counter() - t0
             info.order.append(name)
             return rs
@@ -509,9 +546,3 @@ class Executor:
             combiner_node.name,
             lambda: comb.intersect(results, combiner_node.spec.k))
 
-
-def _no_cache(cache):
-    if cache is not None:
-        raise NotImplementedError(
-            "the query cache is not ported yet (ROADMAP queue A, item A5: "
-            "serve/cache.py)")

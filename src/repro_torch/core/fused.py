@@ -34,6 +34,14 @@ two invariants:
   per-table group-by — so mask threading moves into the DAG program, and
   the batched seekers all run unrestricted.
 
+Query-cache composition: seekers served from the subplan cache drop out of
+the batch entirely; their cached (scores, mask) vectors are fed to the DAG
+program as extra inputs.  As in the unfused path, only unrestricted runs
+are served from or stored into the cache, so partial hits stay
+bit-identical to a cold run.  The DAG program also returns the registers
+of the seekers to store, and each is stored as a copy: the program's
+output buffers are rewritten by its next replay.
+
 Program-key discipline: the batch query width, the tuple-block width, the
 seeker count and the shared capacity window are quantized onto power-of-two
 / capacity ladders, and the DAG program is keyed on plan topology, so
@@ -92,6 +100,9 @@ class _PlanProg:
     instrs: list = field(default_factory=list)
     order: list = field(default_factory=list)        # ExecInfo.order parity
     tasks: list = field(default_factory=list)        # _Task, traversal order
+    cached: list = field(default_factory=list)       # CachedSeeker hits
+    cached_names: list = field(default_factory=list)
+    cache_puts: list = field(default_factory=list)   # (key, reg, task)
     out_reg: int = 0
 
 
@@ -107,11 +118,11 @@ def _group_key(spec) -> tuple:
 
 # --------------------------------------------------------------------------
 # plan -> linear DAG program (mirrors Executor._run's traversal exactly,
-# including the memoization, EG mask threading and the difference-subtrahend
-# rewrite)
+# including the memoization, EG mask threading, the difference-subtrahend
+# rewrite and the subplan-cache consultation order)
 # --------------------------------------------------------------------------
 
-def _compile_plan(plan, optimize, ep, plan_idx) -> _PlanProg:
+def _compile_plan(plan, optimize, ep, cache, plan_idx) -> _PlanProg:
     pr = _PlanProg()
     reg_of: dict[str, int] = {}
 
@@ -120,6 +131,18 @@ def _compile_plan(plan, optimize, ep, plan_idx) -> _PlanProg:
         return len(pr.instrs) - 1
 
     def seeker_node(name, spec, allowed_reg) -> int:
+        # mirrors timed_seeker: the cache serves and stores unrestricted
+        # runs only
+        key = cache.seeker_key(spec) \
+            if cache is not None and allowed_reg is None else None
+        if key is not None:
+            hit = cache.get_seeker(key)
+            if hit is not None:
+                reg = emit(("cached", len(pr.cached)))
+                pr.cached.append(hit)
+                pr.cached_names.append(name)
+                pr.order.append(name)
+                return reg
         task = _Task(plan_idx=plan_idx, name=name, spec=spec,
                      instr_idx=len(pr.instrs))
         # the task's ordinal within the plan is stable across batch
@@ -128,6 +151,8 @@ def _compile_plan(plan, optimize, ep, plan_idx) -> _PlanProg:
         reg = emit(("seeker", None, len(pr.tasks), spec.k,
                     -1 if allowed_reg is None else allowed_reg))
         pr.tasks.append(task)
+        if key is not None:
+            pr.cache_puts.append((key, reg, task))
         pr.order.append(name)
         return reg
 
@@ -338,15 +363,17 @@ def _launch_group(ex, key, tasks):
 # the whole-DAG device program
 # --------------------------------------------------------------------------
 
-def _run_dag(prog, out_reg, rows, *group_scores):
+def _run_dag(prog, outs, n_groups, rows, *inputs):
     """Execute one plan's compiled instruction list as one program.
-    ``group_scores`` are the stacked seeker score matrices this plan
-    consumes and ``rows`` maps each seeker ordinal to its batch row (an
-    operand, so a reshuffled batch of the same plan shapes reuses the
-    program).  Every op is its combiners.py counterpart, so outputs are
-    bit-identical to the node-at-a-time walk.  Returns the output
-    register's (scores, mask)."""
+    ``inputs`` are the ``n_groups`` stacked seeker score matrices this plan
+    consumes, then each cached seeker's scores and mask; ``rows`` maps each
+    seeker ordinal to its batch row (an operand, so a reshuffled batch of
+    the same plan shapes reuses the program).  Every op is its
+    combiners.py counterpart, so outputs are bit-identical to the
+    node-at-a-time walk.  Returns (scores, mask) of each register in
+    ``outs``, flattened."""
     rows = rows.to(torch.int64)
+    group_scores, cached = inputs[:n_groups], inputs[n_groups:]
     regs = []
     for ins in prog:
         op = ins[0]
@@ -356,6 +383,9 @@ def _run_dag(prog, out_reg, rows, *group_scores):
             if allowed >= 0:
                 s = torch.where(regs[allowed].mask, s, 0.0)
             regs.append(comb.topk_result(s, k))
+        elif op == "cached":
+            i = 2 * ins[1]
+            regs.append(comb.ResultSet(scores=cached[i], mask=cached[i + 1]))
         elif op == "maskand":
             a, b = regs[ins[1]], regs[ins[2]]
             regs.append(comb.ResultSet(scores=a.scores, mask=a.mask & b.mask))
@@ -367,25 +397,26 @@ def _run_dag(prog, out_reg, rows, *group_scores):
             fn = {"intersect": comb.intersect, "union": comb.union,
                   "counter": comb.counter}[op]
             regs.append(fn([regs[d] for d in deps], k))
-    return regs[out_reg].scores, regs[out_reg].mask
+    return tuple(t for r in outs for t in (regs[r].scores, regs[r].mask))
 
 
 # --------------------------------------------------------------------------
 # driver
 # --------------------------------------------------------------------------
 
-def run_fused(ex, plans, optimize=True, cost_model=None):
+def run_fused(ex, plans, optimize=True, cost_model=None, cache=None):
     """Execute ``plans`` (one or a whole ``run_many`` batch) on the fused
     path; returns [(ResultSet, ExecInfo)] aligned with ``plans``.  The
     caller (Executor.run / Executor.run_many) owns the final sync."""
     eps = [optimize_plan(p, ex.seeker_stats, cost_model) if optimize
            else None for p in plans]
-    progs = [_compile_plan(p, optimize, e, i)
+    progs = [_compile_plan(p, optimize, e, cache, i)
              for i, (p, e) in enumerate(zip(plans, eps))]
 
     tasks = [t for pr in progs for t in pr.tasks]
     # identical seekers (same frozen spec, e.g. a subtree shared across a
-    # batch) collapse onto one head task BEFORE hashing: same spec means
+    # batch, where every request's cache lookups happen before any put)
+    # collapse onto one head task BEFORE hashing: same spec means
     # same hashes, capacity rung and scores, so dupes share the head's
     # batch row and pay no host work
     heads: dict = {}
@@ -433,17 +464,26 @@ def run_fused(ex, plans, optimize=True, cost_model=None):
                                       ins[2], ins[3], ins[4])
         rows = np.array([t.row for t in pr.tasks], np.int32)
         gs = tuple(group_out[k][0] for k in plan_keys)
+        cached = tuple(t for c in pr.cached
+                       for t in (c.result.scores, c.result.mask))
         prog = tuple(pr.instrs)
+        outs = (pr.out_reg,) + tuple(reg for _, reg, _ in pr.cache_puts)
         tr0 = sum(seek.TRACE_COUNTS.values())
         t0 = time.perf_counter()
         with rec.span("merge", instrs=len(pr.instrs)) as sp:
-            scores, mask = ex.programs.run(
-                ("DAG", prog, pr.out_reg), "DAG",
-                lambda r, *g, _p=prog, _o=pr.out_reg: _run_dag(_p, _o, r,
-                                                                *g),
-                (rows,), gs)
-            # the program's buffers are rewritten by its next replay
-            result = comb.ResultSet(scores=scores.clone(), mask=mask.clone())
+            got = ex.programs.run(
+                ("DAG", prog, outs), "DAG",
+                lambda r, *g, _p=prog, _o=outs, _n=len(gs): _run_dag(
+                    _p, _o, _n, r, *g),
+                (rows,), gs + cached)
+            # the program's buffers are rewritten by its next replay: the
+            # result and every cached seeker are copies
+            regs = {}
+            for i, reg in enumerate(outs):
+                if reg not in regs:
+                    regs[reg] = comb.ResultSet(scores=got[2 * i].clone(),
+                                               mask=got[2 * i + 1].clone())
+            result = regs[pr.out_reg]
             if obs.sync_timing():
                 ex.synchronize()
         dag_s = time.perf_counter() - t0
@@ -456,6 +496,7 @@ def run_fused(ex, plans, optimize=True, cost_model=None):
 
         info = ExecInfo(optimized=optimize)
         info.order = pr.order
+        info.cached_nodes = pr.cached_names
         info.seeker_runs = len(pr.tasks)
         # one launch per seeker group + the DAG program; groups == kinds
         # unless same-kind seekers differ in static shape args (MC n_cols,
@@ -469,10 +510,15 @@ def run_fused(ex, plans, optimize=True, cost_model=None):
             name = "fused:" + "/".join(str(p) for p in key)
             info.node_seconds[name] = info.node_seconds.get(name, 0.0) + \
                 launch_seconds[key] / len(group_plans[key])
+        info.overflow_parts.extend(c.overflow for c in pr.cached)
         for key in plan_keys:
             rows_k = [t.row for t in pr.tasks if t.group_key == key]
             info.overflow_parts.append(OverflowSlice(group_out[key][1],
                                                      rows_k))
+        for ckey, reg, task in pr.cache_puts:
+            cache.put_seeker(ckey, regs[reg],
+                             OverflowSlice(group_out[task.group_key][1],
+                                           [task.row]), ex.n_tables)
         out.append((result, info))
     mreg.counter("exec.plans").inc(len(out))
     # physical device programs this call: one per group + one DAG per plan

@@ -11,10 +11,29 @@ the DAG's instruction tuple and input shapes).
   program (``seekers._mark_trace``).  Every call, the first included,
   copies its operands into those buffers and replays the graph: one
   host-to-device copy for all host operands, one device copy per device
-  operand, one graph launch.  A capture that fails raises; nothing runs
-  the eager function in its place.
+  operand, one graph launch.  A capture that fails, or that records no
+  work, raises; nothing runs the eager function in its place.  The
+  garbage collector is off during a capture (it could free a dead
+  program's graph there, which breaks the capture).
 * On the CPU the function runs eagerly; the first call with a key is still
   marked, so the retrace-freedom contracts hold there as key discipline.
+
+Memory.  Every program of a ``Programs`` captures into one shared graph
+memory pool, which ``clear`` drops with the programs.  Sharing is safe
+under two rules, and both must hold:
+
+* **Outputs lie outside the pool.**  A capture into the pool may take any
+  block an earlier capture freed, for its own temporaries or its results;
+  a replay of the earlier program would then overwrite them.  So a
+  program's output buffers are allocated before its capture, by the
+  ordinary allocator, and the captured function ends by copying its
+  results into them.  What a program holds for good is its static inputs
+  and its static outputs; the pool holds only temporaries, which are dead
+  when a replay ends.
+* **Replays are serialized on one stream.**  Two programs replayed at once,
+  or on two streams, would share those temporaries.  Every replay runs on
+  the caller's current stream, and no two threads may replay programs of
+  one ``Programs`` concurrently.
 
 The kernel wrappers count launches in Python, which a replay does not run:
 a program records how much each query-path wrapper's counter rose during
@@ -26,7 +45,9 @@ it.
 """
 from __future__ import annotations
 
+import gc
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -73,9 +94,9 @@ def _add_counts(ticks):
 
 
 class _Graph:
-    """One captured program: static inputs, the graph, its outputs."""
+    """One captured program: static inputs, the graph, static outputs."""
 
-    def __init__(self, fn, flat, layout, dev, device):
+    def __init__(self, fn, flat, layout, dev, device, pool):
         self.buf = torch.empty(len(flat), dtype=torch.int32, device=device)
         self.dev_in = [torch.empty_like(t) for t in dev]
         self.load(flat, dev)
@@ -86,14 +107,35 @@ class _Graph:
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            call()
+            warm = call()
         torch.cuda.current_stream(device).wait_stream(side)
+        # outside the shared pool (module docstring)
+        self.out = tuple(torch.empty_like(t) for t in warm)
+        del warm
         before = _counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = call()
+        # the collector must not run inside the capture: freeing a dead
+        # program's graph there is an operation a capture forbids, and it
+        # invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                with torch.cuda.graph(self.graph, pool=pool):
+                    for static, t in zip(self.out, call()):
+                        static.copy_(t)
+        finally:
+            if collecting:
+                gc.enable()
         self.ticks = [a - b for a, b in zip(_counts(), before)]
         _add_counts([-n for n in self.ticks])     # capture launched nothing
+        for w in caught:
+            if "CUDA Graph is empty" in str(w.message):
+                raise RuntimeError("a program captured no work: its replay "
+                                   "would leave its outputs as they were")
+            warnings.warn_explicit(w.message, w.category, w.filename,
+                                   w.lineno)
 
     def load(self, flat, dev):
         # a pinned copy: the transfer is asynchronous, and the caching host
@@ -114,6 +156,7 @@ class Programs:
     def __init__(self, device: torch.device):
         self.device = device
         self._programs: dict = {}
+        self._pool = None         # the graph memory pool captures share
 
     def __len__(self) -> int:
         return len(self._programs)
@@ -123,6 +166,11 @@ class Programs:
         ``pred``."""
         self._programs = {full: prog for full, prog in self._programs.items()
                           if not pred(full[0])}
+
+    def clear(self):
+        """Forget every program and the memory pool their captures share."""
+        self._programs = {}
+        self._pool = None
 
     def run(self, key: tuple, kind: str, fn, host=(), dev=()):
         """``fn(*host operands on the device, *dev)`` -> tuple of tensors,
@@ -137,7 +185,9 @@ class Programs:
                 seek._mark_trace(kind)
             return fn(*_unpack(torch.from_numpy(flat), layout), *dev)
         if prog is None:
-            prog = _Graph(fn, flat, layout, dev, self.device)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            prog = _Graph(fn, flat, layout, dev, self.device, self._pool)
             self._programs[full] = prog
             seek._mark_trace(kind)
         else:

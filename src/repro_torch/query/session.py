@@ -15,9 +15,10 @@ physical ``Plan`` objects are accepted everywhere an expression is.
 (core/fused.py).  ``connect(lake, live=True)`` serves a LiveLake
 (store/): the session gains ``add_table`` / ``add_tables`` /
 ``drop_table`` / ``compact`` / ``snapshot``, ``restore`` reopens a
-snapshot and ``recover`` replays snapshot + write-ahead log.  The query
-cache, sharding, the approximate tier and the serving front tier raise
-``NotImplementedError`` naming their ROADMAP item.
+snapshot and ``recover`` replays snapshot + write-ahead log.
+``connect(lake, cache=True)`` gives the session a semantic query cache
+(serve/cache.py).  Sharding, the approximate tier and the serving front
+tier raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,22 +26,23 @@ import time
 from dataclasses import dataclass, field
 
 from repro_torch import obs
+from repro_torch.core.combiners import ResultSet
 from repro_torch.core.cost_model import CostModel
 from repro_torch.core.executor import ExecInfo, Executor
 from repro_torch.core.index import build_index, resolve_device
 from repro_torch.core.optimizer import optimize as optimize_plan
 from repro_torch.core.plan import Plan
 from repro_torch.query import logical as L
+from repro_torch.query.fingerprint import object_nonce
 from repro_torch.query.lower import lower
 from repro_torch.query.parse import parse
 from repro_torch.query.rules import prune_dead_nodes, rewrite
 from repro_torch.store.live import LiveLake
 
 _LATER = {
-    "cache": "the query cache (ROADMAP queue A, item A5)",
     "shards": "sharding (ROADMAP queue A, item A6)",
     "approx": "the approximate tier (ROADMAP queue A, item A7)",
-    "server": "the serving front tier (ROADMAP queue A, item A5)",
+    "server": "the serving front tier (ROADMAP queue A, item A5b)",
 }
 
 
@@ -66,6 +68,8 @@ class QueryResult:
     compiled: Compiled
     seconds: float
     _ids: list | None = None
+    cache: object | None = None       # serve.cache.CacheInfo (None: cache off)
+    _entry: object | None = None      # the CachedResult behind this result
 
     @property
     def scores(self):
@@ -74,9 +78,25 @@ class QueryResult:
 
     @property
     def ids(self) -> list:
-        """Ranked table ids, score-descending (materialized lazily)."""
+        """Ranked table ids, score-descending (materialized lazily, so a
+        ``sync=False`` dispatch stays free of host synchronization; a result
+        backed by a cache entry writes the list back into it, so later hits
+        skip the transfer)."""
         if self._ids is None:
             self._ids = [int(t) for t in self.result.ids()]
+            if self._entry is not None and self._entry.ids is None:
+                self._entry.ids = self._ids
+        return self._ids
+
+    def materialize(self, scores_np, mask_np) -> list:
+        """Install ids from already-fetched host arrays (``serve_many``
+        fetches a whole batch's (scores, mask) pairs in one transfer).
+        Ranking goes through ``ResultSet.rank``, the code path the lazy
+        ``ids`` property uses, with the same cache-entry write-back."""
+        if self._ids is None:
+            self._ids = [int(t) for t in ResultSet.rank(scores_np, mask_np)]
+            if self._entry is not None and self._entry.ids is None:
+                self._entry.ids = self._ids
         return self._ids
 
     @property
@@ -98,6 +118,7 @@ class Explain:
     ids: list
     launches: int = 0                 # device-program dispatches (ExecInfo)
     index_shape: dict = field(default_factory=dict)   # Session.index_shape
+    cache: dict = field(default_factory=dict)         # query-cache telemetry
     metrics: dict = field(default_factory=dict)       # obs registry snapshot
 
     def __str__(self):
@@ -114,6 +135,16 @@ class Explain:
             lines.append(f"  live tables: {s['live_tables']}"
                          + (f"   tombstoned: {s['tombstoned']}"
                             if s["tombstoned"] else ""))
+        if self.cache:
+            c = self.cache
+            lines.append("== cache ==")
+            lines.append(f"  status: {c['status']}   "
+                         f"seekers: {c['seekers_run']} run / "
+                         f"{c['seekers_cached']} cached   "
+                         f"epoch: {c['epoch']}")
+            lines.append(f"  entries: {c['entries']}   bytes: {c['bytes']}   "
+                         f"evictions: {c['evictions']}   "
+                         f"invalidations: {c['invalidations']}")
         if self.metrics:
             m = self.metrics
             lines.append("== metrics ==")
@@ -153,18 +184,34 @@ class Session:
     a live lake (``connect(lake, live=True)``) the Session also exposes the
     mutation API — ``add_table`` / ``add_tables`` / ``drop_table`` /
     ``compact`` / ``snapshot`` — and ``explain`` reports the index shape
-    (segments, postings, tombstones, epoch)."""
+    (segments, postings, tombstones, epoch).  With ``connect(lake,
+    cache=True)`` the Session also owns a semantic QueryCache
+    (serve/cache.py): plan, result and seeker levels keyed on canonical
+    fingerprints and invalidated by ``(epoch, index fingerprint)``."""
 
-    def __init__(self, executor: Executor,
-                 cost_model: CostModel | None = None, live=None):
+    def __init__(self, executor: Executor, lake=None,
+                 cost_model: CostModel | None = None, live=None, cache=None):
         self.executor = executor
+        self.lake = lake
         self.cost_model = cost_model
         self.live = live                  # LiveLake handle or None
-        self._plan_memo = {}
+        self.cache = cache                # serve.cache.QueryCache or None
+        self._plan_memo = {}              # cache-off compile memo (bounded)
 
     @property
     def index(self):
         return self.executor.index
+
+    def _cache_config(self) -> tuple:
+        """The execution-identity part of the cache key: entries produced
+        under other executor options (capacity ladder, probe backend,
+        device) or another cost model (seeker ranking, so f32 sum order)
+        are other computations and never cross-serve (serve/cache.py
+        ``begin``)."""
+        ex = self.executor
+        return (ex.backend, str(ex.device), ex.m_cap_max, ex.row_cap,
+                ex.bucket_width, object_nonce(self.cost_model)
+                if self.cost_model is not None else 0)
 
     # ------------------------------------------------------------ mutations
     def _require_live(self):
@@ -213,11 +260,13 @@ class Session:
     def compile(self, q, top: int | None = None) -> Compiled:
         """Expression / BlendQL string / legacy Plan -> Compiled.  Strings
         and expressions are memoized by content (compilation does not depend
-        on the index)."""
+        on the index, so with the query cache its plan level keeps them
+        across epoch changes)."""
         plan_key = None
         if isinstance(q, (str, L.Expr)):
             plan_key = (q, top)
-            got = self._plan_memo.get(plan_key)
+            got = self.cache.get_plan(plan_key) if self.cache is not None \
+                else self._plan_memo.get(plan_key)
             if got is not None:
                 return got
         if isinstance(q, str):
@@ -239,10 +288,13 @@ class Session:
         compiled = Compiled(plan=plan, logical=rewritten.expr, raw=q,
                             applied_rules=list(rewritten.applied),
                             node_of=node_of)
-        # FIFO-bounded: serving mixes are small
-        if len(self._plan_memo) >= 512:
-            self._plan_memo.pop(next(iter(self._plan_memo)))
-        self._plan_memo[plan_key] = compiled
+        if self.cache is not None:
+            self.cache.put_plan(plan_key, compiled)
+        else:
+            # FIFO-bounded: serving mixes are small
+            if len(self._plan_memo) >= 512:
+                self._plan_memo.pop(next(iter(self._plan_memo)))
+            self._plan_memo[plan_key] = compiled
         return compiled
 
     # ---------------------------------------------------------------- execute
@@ -252,16 +304,68 @@ class Session:
         """Compile + execute; ``top`` overrides/sets the root result limit.
         ``fused=True`` executes on the fused path (core/fused.py): batched
         same-kind seeker dispatch + a single whole-DAG device program,
-        ``ExecInfo.launches <= n_kinds + 1``, bit-identical results."""
+        ``ExecInfo.launches <= n_kinds + 1``, bit-identical results.
+
+        With the query cache (``connect(lake, cache=True)``) the request is
+        first validated against the ``(epoch, index fingerprint)`` key, then
+        served from the exact-result cache when the canonical plan
+        fingerprint matches (launching nothing); otherwise the executor runs
+        with the subplan cache, which serves unrestricted seeker runs (a
+        'partial' hit).  Results are bit-identical to a cold run."""
         if approx:
             _not_ported("approx")
         compiled = q if isinstance(q, Compiled) else self.compile(q, top=top)
+        cache = self.cache
         t0 = time.perf_counter()
+        if cache is None:
+            rs, info = self.executor.run(compiled.plan, optimize=optimize,
+                                         cost_model=self.cost_model,
+                                         sync=sync, fused=fused)
+            return QueryResult(result=rs, info=info, compiled=compiled,
+                               seconds=time.perf_counter() - t0)
+        cache.begin(self.executor.index, self._cache_config())
+        rkey = cache.result_key(compiled.plan, optimize)
+        entry = cache.get_result(rkey)
+        if entry is not None:
+            return self._hit_result(entry, compiled, sync,
+                                    time.perf_counter() - t0)
         rs, info = self.executor.run(compiled.plan, optimize=optimize,
                                      cost_model=self.cost_model, sync=sync,
-                                     fused=fused)
+                                     cache=cache, fused=fused)
+        return self._record_result(rkey, rs, info, compiled,
+                                   time.perf_counter() - t0)
+
+    def _hit_result(self, entry, compiled, sync, seconds) -> QueryResult:
+        """Serve one exact-result cache hit (shared by query/query_many)."""
+        cache = self.cache
+        cache.note("hit")
+        # a sync=False hit on an entry stored earlier in the same undrained
+        # batch must not block the dispatch loop: its ids materialize later
+        if sync and entry.ids is None:
+            entry.ids = [int(t) for t in entry.result.ids()]
+        return QueryResult(result=entry.result, info=entry.info,
+                           compiled=compiled, seconds=seconds,
+                           _ids=entry.ids, cache=cache.request_info("hit"),
+                           _entry=entry)
+
+    def _record_result(self, rkey, rs, info, compiled,
+                       seconds) -> QueryResult:
+        """Store one executed result into the cache and wrap it (shared by
+        query/query_many)."""
+        cache = self.cache
+        from repro_torch.serve.cache import CachedResult   # serve/ is above
+        entry = CachedResult(result=rs, info=info,
+                             plan_nodes=len(compiled.plan.nodes))
+        cache.put_result(rkey, entry, n_tables=self.executor.n_tables)
+        status = "partial" if info.cached_nodes else "miss"
+        cache.note(status)
+        cinfo = cache.request_info(status,
+                                   seekers_cached=len(info.cached_nodes),
+                                   seekers_run=info.seeker_runs)
+        # the ids this result materializes are written back into the entry
+        # too, so a later hit on it reads nothing from the device
         return QueryResult(result=rs, info=info, compiled=compiled,
-                           seconds=time.perf_counter() - t0)
+                           seconds=seconds, cache=cinfo, _entry=entry)
 
     def sql(self, text: str, optimize: bool = True,
             sync: bool = True) -> QueryResult:
@@ -275,29 +379,53 @@ class Session:
         same-kind seekers are batched *across all requests* into shared
         device launches (``Executor.run_many``), so a heterogeneous batch
         executes in about one launch per seeker kind plus one DAG program
-        per request; ``fused=False`` runs ``query`` on each in turn.  Every
-        result is bit-identical to a sequential run.
+        per request; ``fused=False`` runs ``query`` on each in turn.
+        Query-cache semantics match ``query``: exact-result hits
+        short-circuit before the executor, subplan hits drop their seekers
+        out of the fused batch, and every result is bit-identical to a
+        sequential cold run.
 
-        Each result's ``seconds`` is its own compile time plus an equal
-        share of the batch's execution."""
-        pending = []
-        for q in queries:
+        Each result's ``seconds`` is its own compile (and cache lookup)
+        time plus an equal share of the batch's execution (exact hits pay
+        no share)."""
+        cache = self.cache
+        if cache is not None:
+            cache.begin(self.executor.index, self._cache_config())
+        results: list = [None] * len(queries)
+        pending: list = []           # (index, Compiled, result key, seconds)
+        for i, q in enumerate(queries):
             t0 = time.perf_counter()
             comp = q if isinstance(q, Compiled) else self.compile(q, top=top)
-            pending.append((comp, time.perf_counter() - t0))
+            if cache is None:
+                pending.append((i, comp, None, time.perf_counter() - t0))
+                continue
+            rkey = cache.result_key(comp.plan, optimize)
+            entry = cache.get_result(rkey)
+            if entry is not None:
+                results[i] = self._hit_result(entry, comp, sync,
+                                              time.perf_counter() - t0)
+            else:
+                pending.append((i, comp, rkey, time.perf_counter() - t0))
         if not pending:
-            return []
+            return results
         if not fused:
-            return [self.query(comp, optimize=optimize, sync=sync)
-                    for comp, _ in pending]
+            for i, comp, _, _ in pending:
+                results[i] = self.query(comp, optimize=optimize, sync=sync)
+            return results
         t0 = time.perf_counter()
-        outs = self.executor.run_many([c.plan for c, _ in pending],
+        outs = self.executor.run_many([c.plan for _, c, _, _ in pending],
                                       optimize=optimize,
-                                      cost_model=self.cost_model, sync=sync)
+                                      cost_model=self.cost_model, sync=sync,
+                                      cache=cache)
         share = (time.perf_counter() - t0) / len(pending)
-        return [QueryResult(result=rs, info=info, compiled=comp,
-                            seconds=own_s + share)
-                for (comp, own_s), (rs, info) in zip(pending, outs)]
+        for (i, comp, rkey, own_s), (rs, info) in zip(pending, outs):
+            if cache is not None:
+                results[i] = self._record_result(rkey, rs, info, comp,
+                                                 own_s + share)
+            else:
+                results[i] = QueryResult(result=rs, info=info, compiled=comp,
+                                         seconds=own_s + share)
+        return results
 
     # ---------------------------------------------------------------- explain
     def explain(self, q, top: int | None = None, optimize: bool = True,
@@ -326,18 +454,35 @@ class Session:
             ranked = {name: list(eg.seekers) for name, eg in ep.groups.items()}
         info = ExecInfo(optimized=optimize)
         ids: list = []
+        cache_info: dict = {}
         if execute:
             res = self.query(compiled, optimize=optimize, fused=fused)
             info, ids = res.info, res.ids
+            if res.cache is not None:
+                cache_info = res.cache.as_dict()
         return Explain(logical_tree=tree,
                        applied_rules=list(compiled.applied_rules),
                        physical_order=ranked, exec_order=list(info.order),
                        node_seconds=dict(info.node_seconds),
                        overflow=info.overflow if execute else 0, ids=ids,
                        launches=info.launches,
-                       index_shape=self.index_shape(),
+                       index_shape=self.index_shape(), cache=cache_info,
                        metrics=obs.registry().snapshot()
                        if obs.enabled() else {})
+
+
+def _make_cache(cache):
+    """``cache=`` argument -> QueryCache | None: False/None disables, True
+    uses the default byte budget, an int is the budget, a QueryCache
+    instance is used as-is (imported here: serve/ sits above query/)."""
+    if not cache:
+        return None
+    from repro_torch.serve.cache import QueryCache
+    if isinstance(cache, QueryCache):
+        return cache
+    if cache is True:
+        return QueryCache()
+    return QueryCache(max_bytes=int(cache))
 
 
 def connect(lake, cost_model: CostModel | None = None, live: bool = False,
@@ -353,10 +498,16 @@ def connect(lake, cost_model: CostModel | None = None, live: bool = False,
     bit-identically to a from-scratch rebuild, while the lake evolves.
     ``lake`` may also be an existing ``LiveLake``.  ``wal=`` (a path or
     ``store.wal.WriteAheadLog``; requires ``live=True``) durably logs every
-    acknowledged mutation; reopen with :func:`recover`."""
-    for option, value in (("cache", cache), ("shards", shards)):
-        if value:
-            _not_ported(option)
+    acknowledged mutation; reopen with :func:`recover`.
+
+    ``cache=True`` (or a byte budget / QueryCache instance) enables the
+    semantic query cache (serve/cache.py): repeated or subtree-sharing
+    queries are served from compiled-plan, exact-result and per-seeker
+    caches, all invalidated by the store epoch so mutations never serve
+    stale ids."""
+    if shards:
+        _not_ported("shards")
+    qc = _make_cache(cache)
     if wal is not None and not live:
         raise ValueError("wal= requires live=True (the WAL logs mutations)")
     # resolve the device before the (long) index build, so a missing card
@@ -371,21 +522,20 @@ def connect(lake, cost_model: CostModel | None = None, live: bool = False,
         else:
             ll = LiveLake(lake, wal=wal)
         return Session(Executor(ll.store, **executor_opts),
-                       cost_model=cost_model, live=ll)
+                       lake=None if lake is ll else lake,
+                       cost_model=cost_model, live=ll, cache=qc)
     executor = Executor(build_index(lake), **executor_opts)
-    return Session(executor, cost_model=cost_model)
+    return Session(executor, lake=lake, cost_model=cost_model, cache=qc)
 
 
 def restore(path, cost_model: CostModel | None = None, cache=False,
             **executor_opts) -> Session:
     """Open a live session from a snapshot (store/snapshot.py): no
     re-indexing, the server restart path."""
-    if cache:
-        _not_ported("cache")
     executor_opts["device"] = resolve_device(executor_opts.get("device"))
     ll = LiveLake.restore(path)
     return Session(Executor(ll.store, **executor_opts),
-                   cost_model=cost_model, live=ll)
+                   cost_model=cost_model, live=ll, cache=_make_cache(cache))
 
 
 def recover(path=None, *, wal=None, shards: int | None = None,
@@ -398,9 +548,7 @@ def recover(path=None, *, wal=None, shards: int | None = None,
     recovered session answers queries with ids, scores and epoch
     bit-identical to the uninterrupted run, and keeps logging to ``wal``.
     ``shards=N`` only matters on a cold start with no snapshot."""
-    if cache:
-        _not_ported("cache")
     executor_opts["device"] = resolve_device(executor_opts.get("device"))
     ll = LiveLake.recover(path, wal=wal, shards=shards, policy=policy)
     return Session(Executor(ll.store, **executor_opts),
-                   cost_model=cost_model, live=ll)
+                   cost_model=cost_model, live=ll, cache=_make_cache(cache))

@@ -28,6 +28,7 @@ from contextlib import contextmanager
 from repro_torch import faults, obs
 from repro_torch.core.lake import Table
 from repro_torch.errors import WalReplayError
+from repro_torch.query.fingerprint import index_epoch_key
 from repro_torch.store import snapshot as snap
 from repro_torch.store import wal as walmod
 from repro_torch.store.compact import (CompactionPolicy, compact_store,
@@ -264,6 +265,13 @@ class LiveLake:
                    auto_compact=auto_compact, wal=wal)
 
     # ------------------------------------------------------------ inspection
+    def cache_key(self) -> tuple:
+        """``(epoch, store fingerprint)``: the query-cache invalidation key
+        (query/fingerprint.py).  Every mutation above bumps the epoch, so a
+        QueryCache validated against this key drops its result and seeker
+        levels before the next query can observe the mutated index."""
+        return index_epoch_key(self.store)
+
     def live_ids(self) -> list:
         return self.store.live_ids()
 

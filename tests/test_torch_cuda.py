@@ -19,6 +19,8 @@ import pytest
 import torch
 
 import repro_torch as blend
+from repro_torch.core import executor as executor_mod
+from repro_torch.core import fused
 from repro_torch.core import seekers as seek
 from repro_torch.core.executor import RECENT_CONFIGS, Executor
 from repro_torch.core.hashing import MISSING
@@ -37,6 +39,7 @@ from repro_torch.kernels.qcr_score.ref import qcr_score_ref, qcr_segments_ref
 from repro_torch.kernels.superkey_filter import ops as sk_ops
 from repro_torch.kernels.superkey_filter.ref import (superkey_filter_ref,
                                                      superkey_filter_rows_ref)
+from repro_torch.serve.engine import DiscoveryEngine
 
 
 @pytest.fixture
@@ -512,18 +515,22 @@ def test_live_arena_growth_on_card(fused_lake):
     assert keys and all(k[1] == gen + 1 for k in keys)
 
 
-def test_live_program_memory_stays_flat_on_card(fused_lake):
+@pytest.mark.parametrize("bound", [5, RECENT_CONFIGS])
+def test_live_program_memory_stays_flat_on_card(fused_lake, bound,
+                                                monkeypatch):
     """Adds and drops where every add is a geometry not seen before: once
-    the executor holds ``RECENT_CONFIGS`` configs' programs, each new one
-    evicts the oldest with its graphs' memory, so the device memory stops
-    growing; while it fills, each config's programs take memory."""
+    the executor holds ``bound`` configs' programs, each new one evicts
+    the oldest with its programs' static inputs and outputs, so the device
+    memory stops growing; while it fills, each config's programs take
+    memory."""
+    monkeypatch.setattr(executor_mod, "RECENT_CONFIGS", bound)
     lake, _ = fused_lake
     card = blend.connect(lake, live=True, backend="bucket")
     ex = card.executor
     plan = _fused_plan(lake, 2)
     card.query(plan, fused=True)
-    mem = []
-    for i in range(RECENT_CONFIGS + 8):
+    mem, held = [], []
+    for i in range(bound + 8):
         t = synthetic_lake(n_tables=1, rows=8 + i, cols=4, vocab=300,
                            seed=60 + i).tables[0]
         tid = card.add_table(t, name=f"geometry{i}")
@@ -532,13 +539,233 @@ def test_live_program_memory_stays_flat_on_card(fused_lake):
         card.query(plan, fused=True)
         torch.cuda.synchronize()
         mem.append(torch.cuda.memory_allocated())
-        configs = {key[1:3] for key, *_ in ex.programs._programs
-                   if key[0] == "engine"}
-        assert len(configs) <= RECENT_CONFIGS
-    full = RECENT_CONFIGS - 2            # the base plus RECENT - 1 adds
-    per_config = (mem[full] - mem[0]) / full
+        held.append(len({key[1:3] for key, *_ in ex.programs._programs
+                         if key[0] == "engine"}))
+        assert held[-1] <= bound
+    # two sizes may pad to one geometry: the cache is full at the first
+    # step that holds ``bound`` configs (the base and bound - 1 adds)
+    full = held.index(bound)
+    assert full <= 10
+    per_config = (mem[full] - mem[0]) / (held[full] - held[0])
     assert per_config > 0
     assert max(mem[full:]) - mem[full] < per_config
+
+
+def _group_program(ex, spec):
+    """A call of the fused path's seeker-group program for ``spec`` alone:
+    returns the program's own output buffers (scores, overflow copy)."""
+    plan = Plan()
+    plan.add("s", spec)
+    task = fused._compile_plan(plan, False, None, None, 0).tasks[0]
+    fused._hash_tasks(ex, [task])
+    return fused._launch_group(ex, fused._group_key(spec), [task])
+
+
+def test_shared_pool_programs_replay_in_reverse_order_on_card(fused_lake):
+    """Two group programs captured in turn into the executor's shared
+    graph memory pool, then replayed in the reverse order with other
+    values: the one replayed first still holds its answer after the other
+    ran, and both equal the plain path on the CPU.  Their outputs lie
+    outside the pool (in the ordinary allocator's segments)."""
+    lake, idx = fused_lake
+    ex = Executor(idx, backend="bucket")
+    cpu = Executor(idx, backend="bucket", device="cpu")
+
+    def specs(tab):
+        t = lake.tables[tab]
+        return (Seekers.SC(list(t.columns[0][:6]), k=12),
+                Seekers.KW([t.columns[1][0], t.columns[1][1]], k=12))
+
+    for spec in specs(2):                    # capture: SC, then KW
+        _group_program(ex, spec)
+    pool, before = ex.programs._pool, dict(seek.TRACE_COUNTS)
+    assert pool is not None and len(ex.programs) == 2
+    sc, kw = specs(5)
+    kw_scores, _ = _group_program(ex, kw)    # replay: KW, then SC
+    sc_scores, _ = _group_program(ex, sc)
+    torch.cuda.synchronize()
+    assert dict(seek.TRACE_COUNTS) == before and ex.programs._pool is pool
+    for spec, got in ((kw, kw_scores), (sc, sc_scores)):
+        want, _ = _group_program(cpu, spec)
+        assert torch.equal(got.cpu(), want), spec.kind
+    pools = {}
+    for seg in torch.cuda.memory_snapshot():
+        pools[(seg["address"], seg["total_size"])] = \
+            tuple(seg["segment_pool_id"])
+    assert any(p != (0, 0) for p in pools.values())     # the shared pool
+    for got in (kw_scores, sc_scores):
+        (pool,) = [p for (a, n), p in pools.items()
+                   if a <= got.data_ptr() < a + n]
+        assert pool == (0, 0)
+
+
+# ------------------------------------------------ the query cache and serve
+
+def _device_events(fn):
+    """Names of the device activities (kernels, copies) of one call of
+    ``fn``, read from a profiler session after a warm-up call and a marker
+    kernel (the profiler may drop a session's earliest records)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in sorted(prof.profiler.kineto_results.events(),
+                                      key=lambda e: e.start_ns())
+             if e.device_type() != DeviceType.CPU]
+    marks = [i for i, n in enumerate(names) if "spin_kernel" in n]
+    assert len(marks) == 1, "the trace lost the marker kernel"
+    return names[marks[0] + 1:]
+
+
+def _cache_queries(lake):
+    t, u = lake.tables[3], lake.tables[9]
+    return {"sc_a": blend.sc(list(t.columns[0][:8]), k=12),
+            "sc_b": blend.sc(list(u.columns[0][:8]), k=12),
+            "corr": blend.corr(list(t.columns[0][:8]),
+                               [float(i) for i in range(8)], k=12, h=64),
+            "kw": blend.kw([t.columns[1][0], t.columns[1][1]], k=12)}
+
+
+def test_cached_seeker_survives_a_replay_of_its_program_on_card(fused_lake):
+    """``sc`` over A is cached from the fused path; ``sc`` over B replays
+    the same group and DAG programs with other values; the cached entry
+    still holds A's answer, and a partial ``sc | corr`` served from it
+    equals a cold run."""
+    lake, _ = fused_lake
+    s = blend.connect(lake, cache=True, backend="bucket")
+    cold = blend.connect(lake, backend="bucket", device="cpu")
+    q = _cache_queries(lake)
+    s.query(q["sc_a"], fused=True)
+    before = dict(seek.TRACE_COUNTS)
+    b = s.query(q["sc_b"], fused=True)
+    assert dict(seek.TRACE_COUNTS) == before      # the same programs
+    assert b.cache.status == "miss"
+    torch.cuda.synchronize()
+    spec = s.compile(q["sc_a"]).plan.nodes["sc0"].spec
+    entry = s.cache.get_seeker(s.cache.seeker_key(spec))
+    want = cold.query(q["sc_a"])
+    assert not torch.equal(b.scores.cpu(), want.scores)
+    assert torch.equal(entry.result.scores.cpu(), want.scores)
+    r = s.query(q["sc_a"] | q["corr"], fused=True)
+    assert r.cache.status == "partial" and r.info.cached_nodes == ["sc0"]
+    want = cold.query(q["sc_a"] | q["corr"])
+    assert r.ids == want.ids and torch.equal(r.scores.cpu(), want.scores)
+
+
+def test_serve_many_makes_one_device_to_host_copy_on_card(fused_lake):
+    """A warm ``serve_many`` batch, fused and unfused, with and without
+    the cache: the trace shows exactly one device-to-host copy, and the
+    answers equal sequential ``serve`` bit for bit."""
+    lake, _ = fused_lake
+    q = list(_cache_queries(lake).values())
+    batch = q + [q[0] | q[2], blend.counter(q[0], q[1], q[3])]
+    for cache in (False, True):
+        eng = DiscoveryEngine(lake, backend="bucket", cache=cache)
+        serial = [eng.serve(x) for x in batch]
+        for fused in (False, True):
+            eng.serve_many(batch, fused=fused)
+            names = _device_events(lambda: eng.serve_many(batch,
+                                                          fused=fused))
+            copies = [n for n in names if n.startswith("Memcpy DtoH")]
+            assert len(copies) == 1, (cache, fused, copies)
+            for a, b in zip(serial, eng.serve_many(batch, fused=fused)):
+                assert a.table_ids == b.table_ids
+                assert np.array_equal(a.scores, b.scores)
+                assert a.overflow == b.overflow
+
+
+def test_cache_hit_launches_nothing_on_card(fused_lake):
+    """An exact-result hit reads its entry only: no kernel, no copy, no
+    wrapper launch, no program built; its answer equals the miss."""
+    lake, _ = fused_lake
+    s = blend.connect(lake, cache=True, backend="bucket")
+    q = _cache_queries(lake)
+    query = (q["sc_a"] & q["kw"]) | q["corr"]
+    for fused in (False, True):
+        first = s.query(query, fused=fused)
+        first.ids
+        before = ([f.launches for f in QUERY_WRAPPERS],
+                  dict(seek.TRACE_COUNTS))
+        got = []
+        names = _device_events(lambda: got.append(s.query(query,
+                                                          fused=fused)))
+        assert names == []
+        assert ([f.launches for f in QUERY_WRAPPERS],
+                dict(seek.TRACE_COUNTS)) == before
+        assert all(r.cache.status == "hit" for r in got)
+        assert got[-1].ids == first.ids
+        assert torch.equal(got[-1].scores, first.scores)
+        s.cache.clear()
+
+
+def test_cached_fused_runs_capture_no_empty_graph_on_card(fused_lake):
+    """Cached fused runs, including plans whose every seeker comes from
+    the cache, capture no empty CUDA graph (the warning is an error
+    here), and a program that would capture no work is refused."""
+    import warnings
+    lake, idx = fused_lake
+    s = blend.connect(lake, cache=True, backend="bucket")
+    cold = blend.connect(lake, backend="bucket", device="cpu")
+    q = _cache_queries(lake)
+    plans = [q["sc_a"] | q["kw"], q["sc_a"], q["kw"], q["sc_a"] & q["kw"],
+             blend.counter(q["sc_a"], q["kw"], q["corr"])]
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*CUDA Graph is empty.*")
+        for x in plans:
+            r = s.query(x, fused=True)
+            want = cold.query(x)
+            assert r.ids == want.ids and torch.equal(r.scores.cpu(),
+                                                     want.scores)
+        s.cache.clear()
+        s.query_many(plans[:1])
+        for r, x in zip(s.query_many(plans), plans):
+            assert r.ids == cold.query(x).ids
+    ex = Executor(idx, backend="bucket")
+    with pytest.raises(RuntimeError, match="captured no work"):
+        ex.programs.run(("empty",), "DAG",
+                        lambda: (torch.empty(0, device="cuda"),))
+
+
+def test_capture_beside_dead_programs_on_card(fused_lake):
+    """A dead executor's programs, held only by a reference cycle, and a
+    new capture during which the collector would run at every allocation:
+    the collector stays off inside the capture (freeing a graph there
+    breaks it), so the capture holds and replays right."""
+    import gc
+    lake, idx = fused_lake
+    dead = Programs(torch.device("cuda"))
+    x = torch.arange(4.0, device="cuda")
+    dead.run(("dead",), "DAG", lambda t: (t * 2,), (), (x,))
+    keep = [dead]
+    del dead
+
+    def fn(x):
+        if torch.cuda.is_current_stream_capturing():
+            gc.set_threshold(1, 1, 1)        # collect at every allocation
+        elif keep:                           # the warm-up: leave garbage
+            cycle = [keep.pop()]
+            cycle.append(cycle)
+        return (x + 1,)
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1 << 30, 1 << 10, 1 << 10)   # none before the capture
+    ex = Executor(idx, backend="bucket")
+    try:
+        (out,) = ex.programs.run(("gc",), "DAG", fn, (), (x,))
+    finally:
+        gc.set_threshold(*thresholds)
+    torch.cuda.synchronize()
+    assert not keep and torch.equal(out, x + 1)
+    (out,) = ex.programs.run(("gc",), "DAG", fn, (), (x * 2,))
+    torch.cuda.synchronize()
+    assert torch.equal(out, x * 2 + 1)
 
 
 def test_live_recover_on_card(fused_lake, tmp_path):

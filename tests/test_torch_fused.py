@@ -223,8 +223,8 @@ def test_segmented_seekers_match_reference(lake, ref_ex, port_ex, backend):
     plan.add("top", Combiners.Union(k=9), ["root", "mc3", "c8"])
     plan.output = "top"
 
-    def groups(mod, ex, *extra):
-        pr = mod._compile_plan(plan, False, None, *extra, 0)
+    def groups(mod, ex):
+        pr = mod._compile_plan(plan, False, None, None, 0)
         mod._hash_tasks(ex, pr.tasks)
         keys = {}
         for task in pr.tasks:
@@ -232,7 +232,7 @@ def test_segmented_seekers_match_reference(lake, ref_ex, port_ex, backend):
         return {k: mod._launch_group(ex, k, v) for k, v in keys.items()}
 
     got = groups(port_fused, port_ex[backend])
-    want = groups(ref_fused, ref_ex, None)
+    want = groups(ref_fused, ref_ex)
     assert set(got) == set(want) and len(got) == 6
     for key, (scores, ovf) in want.items():
         np.testing.assert_array_equal(got[key][0].numpy(),

@@ -18,6 +18,7 @@ import repro_torch as blend
 from repro.core.lake import DataLake, Table
 from repro.core.plan import Plan, Seekers
 from repro.store import LiveLake as RefLiveLake
+from repro_torch.core import executor as executor_mod
 from repro_torch.core import seekers as seek
 from repro_torch.core.executor import RECENT_CONFIGS
 from repro_torch.core.index import validate_row_stride
@@ -353,14 +354,17 @@ def _engine_configs(ex) -> set:
             if key[0] == "engine"}
 
 
+@pytest.mark.parametrize("bound", [5, RECENT_CONFIGS])
 @pytest.mark.parametrize("backend", BACKENDS)
-def test_new_geometries_keep_a_bounded_program_cache(backend):
+def test_new_geometries_keep_a_bounded_program_cache(backend, bound,
+                                                     monkeypatch):
     """Each add of a table of a new size is a geometry not seen before and
-    builds its programs, but only the last ``RECENT_CONFIGS`` configs of
-    the arena generation keep theirs, so a long mutation stream holds a
-    bounded cache.  A geometry still among them builds nothing when it
-    returns; an evicted one builds again.  The fused answers equal the
-    unfused walk after every step."""
+    builds its programs, but only the last ``bound`` configs of the arena
+    generation keep theirs, so a long mutation stream holds a bounded
+    cache.  A geometry still among them builds nothing when it returns; an
+    evicted one builds again.  The fused answers equal the unfused walk
+    after every step."""
+    monkeypatch.setattr(executor_mod, "RECENT_CONFIGS", bound)
     lake = small_live_lake(seed=37)
     session = _open(lake, backend)
     ex = session.executor
@@ -373,17 +377,17 @@ def test_new_geometries_keep_a_bounded_program_cache(backend):
 
     same()
     seen = []
-    for i in range(RECENT_CONFIGS + 2):
+    for i in range(bound + 2):
         tid = session.add_table(extra_table(i, rows=10 + i))
         same()
         seen.append((ex.arena.generation, ex.engine.config))
         assert seen[-1] in _engine_configs(ex)
-        assert len(_engine_configs(ex)) <= RECENT_CONFIGS
+        assert len(_engine_configs(ex)) <= bound
         session.drop_table(tid)            # a whole-run delete: the base
         same()
-        assert len(_engine_configs(ex)) <= RECENT_CONFIGS
+        assert len(_engine_configs(ex)) <= bound
     assert seen[0] not in _engine_configs(ex)
-    last = RECENT_CONFIGS + 1
+    last = bound + 1
     before = sum(seek.TRACE_COUNTS.values())
     tid = session.add_table(extra_table(last, rows=10 + last))
     same()
@@ -393,6 +397,39 @@ def test_new_geometries_keep_a_bounded_program_cache(backend):
     session.add_table(extra_table(0, rows=10))
     same()
     assert sum(seek.TRACE_COUNTS.values()) > before    # evicted: rebuilt
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_first_of_five_new_geometries_returns_without_a_build(backend):
+    """A live session visits five new geometries in turn, each followed by
+    the base, then returns to the first: that return builds no program
+    (the reference's jit cache never recompiles a config it has seen), and
+    every fused answer equals the unfused walk."""
+    assert RECENT_CONFIGS >= 5 + 1           # five new configs + the base
+    lake = small_live_lake(seed=39)
+    session = _open(lake, backend)
+    ex = session.executor
+    q = _fused_query(lake.tables[3])
+
+    def same():
+        got, want = session.query(q, fused=True), session.query(q)
+        assert got.ids == want.ids
+        assert torch.equal(got.scores, want.scores)
+
+    same()
+    seen = []
+    for i in range(5):
+        tid = session.add_table(extra_table(i, rows=10 + i))
+        same()
+        seen.append((ex.arena.generation, ex.engine.config))
+        session.drop_table(tid)
+        same()
+    assert len(set(seen)) == 5
+    before = sum(seek.TRACE_COUNTS.values())
+    session.add_table(extra_table(0, rows=10))
+    same()
+    assert (ex.arena.generation, ex.engine.config) == seen[0]
+    assert sum(seek.TRACE_COUNTS.values()) == before
 
 
 def test_arena_refill_copies_only_what_changed():

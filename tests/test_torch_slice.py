@@ -189,22 +189,24 @@ def test_later_slices_raise_not_implemented(sessions, tmp_path):
     lake, _, ports = sessions
     port = ports["sorted"]
     expr = blend.kw(["tok_1"])
-    for opts, item in (({"cache": True}, "A5"), ({"shards": 2}, "A6"),
+    for opts, item in (({"shards": 2}, "A6"),
                        ({"live": True, "shards": 2}, "A6"),
-                       ({"live": True, "cache": True}, "A5")):
+                       ({"cache": True, "shards": 2}, "A6")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             blend.connect(lake, device="cpu", **opts)
+    from repro_torch.serve.engine import DiscoveryEngine
     from repro_torch.store import LiveLake
     with pytest.raises(NotImplementedError, match="ROADMAP.*A6"):
         LiveLake.recover(str(tmp_path / "no.snap"), shards=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A6"):
+        DiscoveryEngine(lake, shards=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
         port.query(expr, approx=True)
-    plan = port.compile(expr).plan
-    for fused in (False, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*A5"):
-            port.executor.run(plan, cache=object(), fused=fused)
+    engine = DiscoveryEngine(lake, session=port)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
+        engine.serve(expr, approx={"epsilon": 0.0})
     with pytest.raises(NotImplementedError, match="ROADMAP.*A5"):
-        port.executor.run_many([plan], cache=object())
+        port.explain(expr, server={"x": 1})
 
 
 # ------------------------------------ the static-index members of the surface
@@ -294,6 +296,10 @@ lake = synthetic_lake(n_tables=10, rows=8, seed=0)
 s = blend.connect(lake, backend="bucket", device="cpu")
 res = s.query(blend.sc(lake.tables[0].columns[0]) | blend.kw(["tok_3"]))
 assert res.ids
+from repro_torch.serve.engine import DiscoveryEngine
+eng = DiscoveryEngine(lake, cache=True, backend="bucket", device="cpu")
+got = eng.serve_many([blend.kw(["tok_3"]), blend.kw(["tok_3"])])
+assert got[0].table_ids == got[1].table_ids and got[1].cache["status"] == "hit"
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
              or m in ("repro", "blend"))
