@@ -104,6 +104,35 @@ Phases (each prints JSON lines):
    printed.  The launch counters are set to 0 at the start of each part
    and read at its end.
 
+7. server (run after 6's static part, and at the end of 5 after 6's live
+   part): the batching front tier, ``DiscoveryServer`` with up to 16
+   requests a batch, on the sessions phases 3 and 5 left (no new index).
+   Static, on phase 3's session: four submitter threads each submit the
+   eight queries (lanes and tenants mixed), a warm-up pass and three timed
+   passes; every answer equals phase 3's, ids and scores, the largest batch
+   holds two or more, and the timed passes capture nothing.  One profiled
+   batch of the eight: its trace shows each query-path kernel as often as
+   the dispatcher's replays ticked it.  ``trace=True``: each request's
+   queue and batch spans tile its root, and ``dump_trace`` writes Chrome
+   JSON.  ``explain`` through the server renders ``== server ==``.  The
+   load generator (``make_trace(lake, seed=0, duration_s=2.0)`` at 100 and
+   3000 requests a second, one unpaced warm-up replay, then one open-loop
+   replay of each): every answer equals a sequential ``serve(q,
+   fused=True)`` of its pool query, every shed is a typed ``Overloaded``,
+   no lane's queue outgrows its bound, no future is left pending after
+   ``stop()``; goodput, client p50 / p99, shed rate, mean batch size and
+   launches per batch are printed.  ``RetryingClient`` from four threads
+   against a token bucket (``rate=40``, ``burst=4``): retries and
+   gave-ups.  Live, on phase 5's recovered session: from one thread,
+   without waiting, twice over, the ten queries, ``add_table(guard)``, the
+   ten, ``drop_table`` by name, then the ten once more; the guard ranks
+   first only while live, every answer equals a sequential replay after
+   ``stop()`` (the guard's id mapped), and the second round builds no
+   program.  Every kernel input shape of the server path (the eight as one
+   batch, the load generator's 2-6-value queries alone and in batches, the
+   ten on the live store) is held to the plain versions.  The launch
+   counters are set to 0 at the start of each part and read at its end.
+
 Any phase that captures an empty CUDA graph fails: that warning is an
 error here.  A ``replaced_kernels`` line quotes, as constants not measured in the run,
 the device times of the superkey kernels this version replaced
@@ -147,7 +176,14 @@ from repro_torch.kernels.superkey_filter import ops as sk_ops  # noqa: E402
 from repro_torch.kernels.superkey_filter.ref import (  # noqa: E402
     superkey_filter_ref, superkey_filter_rows_ref)
 from repro_torch.obs import trace as otrace  # noqa: E402
-from repro_torch.serve.engine import DiscoveryEngine  # noqa: E402
+from repro_torch.errors import Overloaded  # noqa: E402
+from repro_torch.serve.batching import BATCH, INTERACTIVE  # noqa: E402
+from repro_torch.serve.client import RetryingClient  # noqa: E402
+from repro_torch.serve.engine import (  # noqa: E402
+    DiscoveryEngine, DiscoveryResponse)
+from repro_torch.serve.loadgen import (  # noqa: E402
+    make_trace, query_pool, replay)
+from repro_torch.serve.server import DiscoveryServer  # noqa: E402
 
 # Gittables' width (max_cols=8) and numeric share (25%), cut to 20k tables
 LAKE = dict(n_tables=20_000, rows=64, cols=8, numeric_cols=2, vocab=200_000,
@@ -1003,10 +1039,11 @@ def run_live_path(lake, queries, static_results, static_connect_s) -> tuple:
     """Phase 5: ``connect(lake, live=True, wal=...)`` on the smoke lake,
     the mutation steps (module docstring), each checked and timed; the
     rebuild parity; ``compact``; ``recover(..., cache=True)`` from the
-    snapshot and the WAL, then phase 6's live cache steps on it.  Returns
-    (each kernel's launches in the phase, the number of distinct inputs of
-    each checked against its plain version, the live cache steps'
-    launches)."""
+    snapshot and the WAL, then phase 6's live cache steps and phase 7's
+    live server on it.  Returns (each kernel's launches in the phase, the
+    number of distinct inputs of each checked against its plain version,
+    the live cache steps' launches, the live server's launches and
+    inputs checked)."""
     tmp = Path(tempfile.mkdtemp(prefix="blend-live-"))
     wal, snap = tmp / "lake.wal", tmp / "lake.snap"
     torch.cuda.synchronize()
@@ -1112,9 +1149,11 @@ def run_live_path(lake, queries, static_results, static_connect_s) -> tuple:
           "recovered_misses": misses,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           **report})
-    serve_launches = None
+    serve_launches = server = None
     if not bad and recovered_epoch == epoch:
-        serve_launches = serve_live_cache(back, queries, guard, tid["c"])
+        serve_launches, guard_tid = serve_live_cache(back, queries, guard,
+                                                     tid["c"])
+        server = server_live(back, queries, guard, guard_tid)
     del back, got, unfused, kept
     shutil.rmtree(tmp, ignore_errors=True)
     if bad or recovered_epoch != epoch:
@@ -1123,7 +1162,7 @@ def run_live_path(lake, queries, static_results, static_connect_s) -> tuple:
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"the live path never launched {idle}")
-    return launches, report["shapes_checked"], serve_launches
+    return launches, report["shapes_checked"], serve_launches, server
 
 
 # ----------------------------------------------------------- phase 6: serve
@@ -1344,12 +1383,13 @@ def serve_cache(lake, session, queries, unfused) -> dict:
     return line
 
 
-def serve_live_cache(back, queries, guard, guard_tid) -> dict:
+def serve_live_cache(back, queries, guard, guard_tid) -> tuple:
     """Phase 6, live cache, on phase 5's recovered session (opened with
     ``cache=True``): a ``drop_table`` and an ``add_table`` of the guard;
     after each the first query is a ``miss``, a second pass is all hits,
     and every answer equals the card's ``sorted`` executor on the same
-    store.  Returns each kernel's launches in it."""
+    store.  Returns (each kernel's launches in it, the id of the guard it
+    left live)."""
     reset_launches()
     checker = Executor(back.live.store, backend="sorted")
     tid = guard_tid
@@ -1382,7 +1422,7 @@ def serve_live_cache(back, queries, guard, guard_tid) -> dict:
           "device_bytes": cache_device_bytes(back.cache)})
     if bad:
         raise AssertionError(f"the live cached session differs: {bad}")
-    return launches
+    return launches, tid
 
 
 def record_serve(index, queries):
@@ -1422,6 +1462,531 @@ def run_serve_path(lake, session, queries, unfused) -> tuple:
         raise AssertionError(f"the serving path never launched {idle}")
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, shapes
+
+
+# ---------------------------------------------------------- phase 7: server
+
+#: phase 7's server: the reference's default batch bound, four submitter
+#: threads, the timed passes after the warm-up, the load generator's rates
+SERVER_BATCH = 16
+SUBMITTERS = 4
+SERVER_PASSES = 3
+LOADGEN_RATES = (100.0, 3000.0)     # well under, and over, capacity
+LOADGEN_SECONDS = 2.0
+
+
+def percentile_ms(seconds, q) -> float:
+    return float(np.percentile(np.asarray(seconds), q) * 1e3) \
+        if seconds else 0.0
+
+
+def histogram_ms(srv, name) -> dict:
+    """Count, mean, max, and p50 / p99 (log-bucketed) of one of the
+    server's latency histograms, in ms."""
+    h = srv.metrics.snapshot()["histograms"].get(name)
+    return {"count": h["count"], **{k: h[k] * 1e3 for k in (
+        "mean", "max", "p50", "p99")}} if h else {"count": 0}
+
+
+def submit_all(srv, items, lane=None, tenant="default") -> list:
+    """Submit each (label, query) of ``items``; returns [(label, future,
+    submit time)]."""
+    out = []
+    for i, (label, q) in enumerate(items):
+        ln = lane or (INTERACTIVE if i % 2 else BATCH)
+        out.append((label, srv.submit(q, lane=ln, tenant=tenant),
+                    time.perf_counter()))
+    return out
+
+
+def resolved(fut, timeout=300):
+    """A future's response; a future that resolves to an exception fails
+    the run."""
+    exc = fut.exception(timeout=timeout)
+    if exc is not None:
+        raise AssertionError(f"a server future failed: {exc!r}") from exc
+    return fut.result()
+
+
+def submitter_pass(srv, queries) -> tuple:
+    """``SUBMITTERS`` threads, each submitting the eight queries (lanes and
+    tenants mixed) and waiting for them.  Returns ([(label, response,
+    client seconds)], wall ms)."""
+    import threading
+    items = list(queries.items())
+    out, failures = [], []
+
+    def client(tid):
+        try:
+            mine = []
+            for i, (label, q) in enumerate(items):
+                lane = INTERACTIVE if (i + tid) % 2 else BATCH
+                mine.append((label, srv.submit(q, lane=lane,
+                                               tenant=f"tenant_{tid}"),
+                             time.perf_counter()))
+            for label, fut, t0 in mine:
+                resp = resolved(fut)
+                out.append((label, resp, time.perf_counter() - t0))
+        except BaseException as e:                   # noqa: BLE001
+            failures.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SUBMITTERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = (time.perf_counter() - t0) * 1e3
+    if failures or any(t.is_alive() for t in threads):
+        raise AssertionError(f"submitter threads failed: {failures}")
+    return out, wall
+
+
+def server_traced(srv, queries) -> tuple:
+    """One profiled batch of the eight through the server (``device_events``
+    after a warm-up batch): the query-path kernels its trace shows must
+    equal the launches the dispatcher's replays ticked, in one of up to
+    ``TRACE_TRIES`` runs.  Returns (traced, ticked, runs)."""
+    batch = list(queries.items())
+
+    def run():
+        for _, fut, _ in submit_all(srv, batch, lane=INTERACTIVE):
+            resolved(fut)
+
+    for run_i in range(1, TRACE_TRIES + 1):
+        _, events, want, _ = device_events(run, 1)
+        got = {name: sum(n for key, (n, _) in events.items()
+                         if f"{name}_kernel" in key) for name in KERNELS}
+        if any(got[k] > want[k] for k in KERNELS):
+            raise AssertionError(f"server batch: traced {got} but ticked "
+                                 f"{want}")
+        if got == want:
+            return got, want, run_i
+    raise AssertionError(f"server batch: no profiled run traced the {want} "
+                         f"launches ticked (last: {got})")
+
+
+def server_static(session, queries, results) -> dict:
+    """Phase 7, static part, on phase 3's session (module docstring)."""
+    engine = DiscoveryEngine(None, session=session)
+    srv = DiscoveryServer(engine, max_batch=SERVER_BATCH)
+    bad, line = [], {"phase": "server", "submitters": SUBMITTERS,
+                     "passes": SERVER_PASSES, "max_batch": SERVER_BATCH}
+    try:
+        built0 = sum(seek.TRACE_COUNTS.values())
+        warm, line["warm_up_ms"] = submitter_pass(srv, queries)
+        line["programs_built_in_warm_up"] = \
+            sum(seek.TRACE_COUNTS.values()) - built0
+        built0 = sum(seek.TRACE_COUNTS.values())
+        got, walls = list(warm), []
+        latencies = []
+        for _ in range(SERVER_PASSES):
+            out, wall = submitter_pass(srv, queries)
+            got += out
+            walls.append(wall)
+            latencies += [s for _, _, s in out]
+        line["captures_in_timed_runs"] = \
+            sum(seek.TRACE_COUNTS.values()) - built0
+        bad += [f"{label}" for label, resp, _ in got
+                if not same_response(resp, results[label])]
+        sizes = [resp.batch_size for _, resp, _ in got]
+        line.update({
+            "pass_wall_ms": walls, "client_p50_ms": percentile_ms(
+                latencies, 50), "client_p99_ms": percentile_ms(latencies, 99),
+            "max_batch_size": max(sizes),
+            "mean_batch_size": float(np.mean(sizes)),
+            "launches_per_response": statistics.median(
+                resp.launches for _, resp, _ in got)})
+        traced, ticked, runs = server_traced(srv, queries)
+        line.update({"kernel_launches_traced": traced,
+                     "kernel_launches_ticked": ticked, "trace_runs": runs})
+        line["batch_ms"] = histogram_ms(srv, "server.batch_seconds")
+        text = str(srv.explain(queries["sc"]))
+        line["explain_has_server_section"] = "== server ==" in text
+        st = srv.stats()
+        line["stats"] = {"served": st["served"],
+                         "batches": st["batches"]["formed"],
+                         "mean_size": st["batches"]["mean_size"],
+                         "launches_per_batch":
+                         st["launches"]["per_batch_mean"]}
+    finally:
+        srv.stop()
+    line["flight_recorder"] = flight_recorder(engine, queries, results)
+    emit(line)
+    if bad:
+        raise AssertionError(f"server answers differ from phase 3: {bad}")
+    if line["captures_in_timed_runs"]:
+        raise AssertionError("programs captured in timed server passes")
+    if line["max_batch_size"] < 2:
+        raise AssertionError("the server never coalesced a batch")
+    if not line["explain_has_server_section"]:
+        raise AssertionError("explain through the server has no == server ==")
+    return line
+
+
+def flight_recorder(engine, queries, results) -> dict:
+    """``trace=True``: each response's span tree, queue then batch,
+    tiles its root within 10% (the JAX package's own bound), and
+    ``dump_trace`` writes Chrome trace JSON."""
+    tmp = Path(tempfile.mkdtemp(prefix="blend-trace-"))
+    srv = DiscoveryServer(engine, max_batch=SERVER_BATCH, trace=True)
+    try:
+        got = [(label, resolved(f)) for label, f, _ in submit_all(
+            srv, list(queries.items()))]
+        path = srv.dump_trace(tmp / "server_trace.json")
+        doc = json.loads(Path(path).read_text())
+    finally:
+        srv.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gaps, bad = [], []
+    need = ("queue", "batch", "pin_epoch", "execute", "drain", "transfer",
+            "merge")
+    for label, resp in got:
+        root = resp.trace
+        names = [s.name for s in root.walk()]
+        covered = sum(c.duration for c in root.children)
+        gaps.append(abs(root.duration - covered) / max(root.duration, 1e-9))
+        if not same_response(resp, results[label]) or \
+                any(n not in names for n in need) or \
+                not any(n.startswith("probe:") for n in names) or \
+                [c.name for c in root.children] != ["queue", "batch"] or \
+                root.children[0].t0 != root.t0:
+            bad.append(label)
+    evs = doc["traceEvents"]
+    out = {"requests": len(got), "events": len(evs),
+           "max_tiling_gap": max(gaps),
+           "requests_in_json": sum(e["ph"] == "X" and e["name"] == "request"
+                                   for e in evs)}
+    if bad or max(gaps) > 0.10 or out["requests_in_json"] != len(got) or \
+            any(e["ph"] not in ("X", "M") for e in evs):
+        raise AssertionError(f"flight recorder: {bad}, {out}")
+    return out
+
+
+class RecordingServer:
+    """A server as ``loadgen.replay`` sees it, keeping every query's
+    future beside its query."""
+
+    def __init__(self, srv):
+        self.srv, self.futures = srv, []
+
+    def submit(self, query, **kw):
+        fut = self.srv.submit(query, **kw)
+        self.futures.append((query, fut))
+        return fut
+
+    def stats(self):
+        return self.srv.stats()
+
+
+def depth_sampler(srv, stop, peak):
+    """Poll the lanes' queue depth every 2 ms into ``peak``."""
+    while not stop.is_set():
+        for lane, d in srv.stats()["queue_depth"].items():
+            peak[lane] = max(peak.get(lane, 0), d)
+        time.sleep(0.002)
+
+
+def loadgen_replay(srv, trace, want, label) -> dict:
+    """One open-loop replay of ``trace``: every completed response equal
+    to its pool query's sequential ``serve``, every shed a typed
+    ``Overloaded``, queue depth within each lane's bound."""
+    import threading
+    rec = RecordingServer(srv)
+    before = srv.stats()
+    peak, stop = {}, threading.Event()
+    sampler = threading.Thread(target=depth_sampler, args=(srv, stop, peak))
+    sampler.start()
+    try:
+        report = replay(rec, trace, timeout_s=300.0)
+    finally:
+        stop.set()
+        sampler.join(timeout=10)
+    after = report.server_stats
+    bad, kinds = [], {}
+    for q, fut in rec.futures:
+        out = resolved(fut)
+        kinds[type(out).__name__] = kinds.get(type(out).__name__, 0) + 1
+        if isinstance(out, Overloaded):
+            continue
+        if not isinstance(out, DiscoveryResponse) or \
+                not same_responses(out, want[id(q)]):
+            bad.append(type(out).__name__)
+    batches = after["batches"]["formed"] - before["batches"]["formed"]
+    launches = after["launches"]["total"] - before["launches"]["total"]
+    bounds = {name: cfg.max_queue
+              for name, cfg in srv._former.lanes.items()}
+    d = report.as_dict()
+    line = {"phase": "server_loadgen", "trace": label,
+            "offered_rps": trace.offered_rps, "offered": d["offered"],
+            "completed": d["completed"], "shed": d["shed"],
+            "shed_rate": report.shed_rate, "shed_reasons": d["shed_reasons"],
+            "goodput_rps": report.goodput_rps,
+            "makespan_s": report.makespan_s,
+            "client_p50_ms": report.percentile_ms(50),
+            "client_p99_ms": report.percentile_ms(99),
+            "queue_p50_ms": percentile_ms(report.queue_s, 50),
+            "queue_p99_ms": percentile_ms(report.queue_s, 99),
+            "mean_batch_size": float(np.mean(report.batch_sizes))
+            if report.batch_sizes else 0.0,
+            "batches": batches,
+            "launches_per_batch": launches / max(batches, 1),
+            "peak_queue_depth": peak, "max_queue": bounds,
+            "responses": kinds}
+    emit(line)
+    if bad:
+        raise AssertionError(f"loadgen {label}: {len(bad)} responses differ "
+                             f"from sequential serve: {bad[:5]}")
+    if set(kinds) - {"DiscoveryResponse", "Overloaded"}:
+        raise AssertionError(f"loadgen {label}: untyped responses {kinds}")
+    over = {k: v for k, v in peak.items() if k in bounds and v > bounds[k]}
+    if over:
+        raise AssertionError(f"loadgen {label}: queue depth {over} over "
+                             f"{bounds}")
+    return line
+
+
+def server_loadgen(lake, session) -> dict:
+    """Phase 7, load generator, on phase 3's session: ``make_trace`` at
+    each of ``LOADGEN_RATES`` (seed 0), a warm-up replay, the timed
+    replays, then ``RetryingClient`` against a rate-limited server."""
+    engine = DiscoveryEngine(None, session=session)
+    traces = {rate: make_trace(lake, seed=SEED, duration_s=LOADGEN_SECONDS,
+                               rate_rps=rate) for rate in LOADGEN_RATES}
+    pool = {id(e.payload): e.payload for tr in traces.values()
+            for e in tr.events if e.kind == "query"}
+    # sequential answers, on this thread, before any server runs
+    want = {key: engine.serve(q, fused=True) for key, q in pool.items()}
+    srv = DiscoveryServer(engine, max_batch=SERVER_BATCH)
+    warm = RecordingServer(srv)
+    lines = {}
+    try:
+        # warm-up: the over-capacity trace without pacing builds the
+        # programs of large batches
+        replay(warm, traces[LOADGEN_RATES[-1]], sleep=lambda s: None,
+               timeout_s=300.0)
+        for rate, tr in traces.items():
+            lines[rate] = loadgen_replay(srv, tr, want, f"{rate:g} rps")
+    finally:
+        srv.stop()
+    pending = sum(not f.done() for _, f in warm.futures)
+    if pending:
+        raise AssertionError(f"{pending} futures pending after stop()")
+    bad = [q for q, f in warm.futures if not isinstance(
+        resolved(f), Overloaded) and not same_responses(f.result(),
+                                                        want[id(q)])]
+    if bad:
+        raise AssertionError(f"{len(bad)} warm-up answers differ")
+    lines["retrying_client"] = retrying_client(engine, pool, want)
+    return lines
+
+
+def retrying_client(engine, pool, want) -> dict:
+    """``RetryingClient`` from ``SUBMITTERS`` threads against a server with
+    a token bucket (``rate=``, ``burst=``) every thread shares: retries and
+    gave-ups, and every answer equal to sequential ``serve``."""
+    import threading
+    srv = DiscoveryServer(engine, max_batch=SERVER_BATCH, rate=40.0,
+                          burst=4.0)
+    queries = list(pool.items())[:12]
+    clients = [RetryingClient(srv, max_retries=3, seed=i)
+               for i in range(SUBMITTERS)]
+    answers, failures = [], []
+
+    def run(client):
+        try:
+            for key, q in queries:
+                answers.append((key, client.serve(q, tenant="shared")))
+        except BaseException as e:                   # noqa: BLE001
+            failures.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(c,)) for c in clients]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        srv.stop()
+    wall = time.perf_counter() - t0
+    if failures:
+        raise AssertionError(f"retrying clients failed: {failures}")
+    bad = [key for key, r in answers if not isinstance(r, Overloaded)
+           and not same_responses(r, want[key])]
+    line = {"phase": "server_retrying_client", "rate": 40.0, "burst": 4.0,
+            "requests": len(answers), "seconds": wall,
+            "retries": sum(c.retries for c in clients),
+            "gave_up": sum(c.gave_up for c in clients),
+            "backoff_s": sum(c.backoff_total_s for c in clients),
+            "shed_rate_limit": srv.stats()["shed"]["rate_limit"]}
+    emit(line)
+    if bad:
+        raise AssertionError(f"retrying client answers differ: {bad}")
+    return line
+
+
+def record_server(index, lake, queries):
+    """The server path's kernel inputs: the eight queries as one batch and
+    each load-generator pool query alone and the pool in batches, through
+    a ``DiscoveryServer`` on a throwaway engine over ``index``."""
+    def drive():
+        engine = DiscoveryEngine(None, session=blend.Session(
+            Executor(index, backend="bucket")))
+        pool = query_pool(lake, np.random.default_rng(SEED))
+        srv = DiscoveryServer(engine, max_batch=SERVER_BATCH, start=False)
+        try:
+            futs = [srv.submit(q) for q in [*queries.values(), *pool]]
+            srv.start()                 # batches of 16, formed in order
+            for f in futs:
+                resolved(f)
+            for q in pool:
+                resolved(srv.submit(q))
+        finally:
+            srv.stop()
+        torch.cuda.synchronize()
+    return drive
+
+
+def run_server_path(lake, session, queries, results) -> tuple:
+    """Phase 7 on the static lake: the static part, the load generator,
+    the kernels at the server path's inputs.  Returns (each kernel's
+    launches in it, the number of distinct inputs of each checked against
+    its plain version)."""
+    t0 = time.perf_counter()
+    reset_launches()
+    server_static(session, queries, results)
+    server_loadgen(lake, session)
+    launches = kernel_launches()
+    shapes = check_path_kernels(session, queries, "server_kernels",
+                                record_server(session.index, lake, queries))
+    emit({"phase": "server_summary", "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"the server path never launched {idle}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, shapes
+
+
+def mapped_same(resp, want, tid, tid_want) -> bool:
+    """``resp`` equals ``want`` with table ``tid`` read as ``tid_want`` (a
+    re-added table may take a new id): ids and scores."""
+    ids = [tid_want if t == tid else t for t in resp.table_ids]
+    n = max(len(resp.scores), len(want.scores))
+    a, b = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    a[:len(resp.scores)], b[:len(want.scores)] = resp.scores, want.scores
+    moved = a[tid]
+    a[tid] = 0.0
+    a[tid_want] = moved
+    return ids == want.table_ids and np.array_equal(a, b)
+
+
+def record_server_live(store, queries):
+    """The live server path's kernel inputs: the ten queries as one batch
+    through a ``DiscoveryServer`` on a throwaway engine over ``store``."""
+    def drive():
+        engine = DiscoveryEngine(None, session=blend.Session(
+            Executor(store, backend="bucket")))
+        srv = DiscoveryServer(engine, max_batch=SERVER_BATCH, start=False)
+        try:
+            futs = [srv.submit(q) for q in queries.values()]
+            srv.start()
+            for f in futs:
+                resolved(f)
+        finally:
+            srv.stop()
+        torch.cuda.synchronize()
+    return drive
+
+
+def server_live(back, queries, guard, guard_tid) -> tuple:
+    """Phase 7, live part, on phase 5's recovered session: from one thread,
+    without waiting, twice over: the ten queries, ``add_table(guard)``, the
+    ten, ``drop_table`` of it by name; then the ten once more.  The guard
+    ranks first in the batches while it is live and never otherwise; every
+    answer equals a sequential replay of the same operations on this thread
+    after ``stop()``; once the first round has run each batch at each
+    state, the mutations (into geometries seen before) build no program.
+    ``guard_tid`` is the guard as phase 6 left it, live: it is dropped
+    first.  Returns (each kernel's launches in it, the number of distinct
+    inputs of each checked against its plain version)."""
+    reset_launches()
+    name = "live_guard_served"
+    back.drop_table(guard_tid)
+    engine = DiscoveryEngine(None, session=back)
+    items = list(queries.items())
+    marks = [sum(seek.TRACE_COUNTS.values())]   # programs, step by step
+
+    def mark(_fut):                    # runs on the dispatcher thread
+        marks.append(sum(seek.TRACE_COUNTS.values()))
+
+    t0 = time.perf_counter()
+    # a long window: each step's ten form one batch, cut by the barriers
+    srv = DiscoveryServer(engine, max_batch=SERVER_BATCH,
+                          interactive_window_s=0.5, batch_window_s=0.5)
+    steps, muts = [], []
+    try:
+        for _ in range(2):
+            steps.append(submit_all(srv, items))
+            muts.append(srv.add_table(guard, name=name))
+            muts[-1].add_done_callback(mark)
+            steps.append(submit_all(srv, items))
+            muts.append(srv.drop_table(name))
+            muts[-1].add_done_callback(mark)
+        steps.append(submit_all(srv, items))
+        steps = [[(label, resolved(f)) for label, f, _ in fs]
+                 for fs in steps]
+        tids = [resolved(f) for f in muts]
+    finally:
+        srv.stop()
+    batch_ms = histogram_ms(srv, "server.batch_seconds")
+    mutation_ms = histogram_ms(srv, "server.mutation_seconds")
+    wall = (time.perf_counter() - t0) * 1e3
+    marks.append(sum(seek.TRACE_COUNTS.values()))
+    built = [b - a for a, b in zip(marks, marks[1:])]
+    launches = kernel_launches()
+    # the sequential replay, from the same state, cold
+    back.cache.clear()
+    replayed, replay_tids = [], []
+    for i in range(len(steps)):
+        replayed.append({label: engine.serve(q, fused=True)
+                         for label, q in items})
+        if i < len(muts):
+            replay_tids.append(back.add_table(guard, name=name) if i % 2 == 0
+                               else back.drop_table(name))
+    bad = [f"mutation {i}" for i, (a, b) in enumerate(zip(tids[::2],
+                                                          tids[1::2]))
+           if a != b]
+    for i, (step, want) in enumerate(zip(steps, replayed)):
+        live = i % 2 == 1
+        tid, tid_want = (tids[i - 1], replay_tids[i - 1]) if live else (0, 0)
+        for label, resp in step:
+            if not mapped_same(resp, want[label], tid, tid_want):
+                bad.append(f"step {i} {label}")
+        for label in ("guard sc", "guard kw"):
+            ids = dict(step)[label].table_ids
+            if (live and ids[:1] != [tid]) or \
+                    (not live and set(tids) & set(ids)):
+                bad.append(f"step {i} {label} guard {ids[:3]}")
+    line = {"phase": "server_live", "wall_ms": wall, "guard_tids": tids,
+            "replay_guard_tids": replay_tids,
+            "batch_sizes": [sorted({r.batch_size for _, r in step})
+                            for step in steps],
+            "programs_built_per_step": built, "batch_ms": batch_ms,
+            "mutation_ms": mutation_ms, "launches": launches}
+    emit(line)
+    if bad:
+        raise AssertionError(f"live server differs from the sequential "
+                             f"replay: {bad}")
+    if any(built[2:]):
+        raise AssertionError(f"programs built after the first round: "
+                             f"{built}")
+    shapes = check_path_kernels(back, queries, "server_live_kernels",
+                                record_server_live(back.live.store, queries))
     return launches, shapes
 
 
@@ -1732,8 +2297,10 @@ def main() -> int:
     fused_launches = run_fused_path(session, queries, unfused)
     serve_launches, serve_shapes = run_serve_path(lake, session, queries,
                                                   unfused)
-    live_launches, live_shapes, live_serve = run_live_path(
-        lake, queries, results, t2 - t1)
+    server_launches, server_shapes = run_server_path(lake, session, queries,
+                                                     results)
+    live_launches, live_shapes, live_serve, (live_server, live_server_shapes) \
+        = run_live_path(lake, queries, results, t2 - t1)
     for name, n in launches.items():
         rows[name]["launches"] = n
         rows[name]["fused_launches"] = fused_launches[name]
@@ -1742,6 +2309,10 @@ def main() -> int:
         rows[name]["serve_launches"] = serve_launches[name] + \
             live_serve[name]
         rows[name]["serve_shapes_checked"] = serve_shapes[name]
+        rows[name]["server_launches"] = server_launches[name] + \
+            live_server[name]
+        rows[name]["server_shapes_checked"] = server_shapes[name] + \
+            live_server_shapes[name]
 
     # phase 4 inputs from the smoke lake, then free phases 1-3
     queries_sk = (q_lo.clone(), q_hi.clone())

@@ -224,10 +224,12 @@ class Executor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def synchronize(self):
-        """Wait for the device's queued work (nothing to wait for on the
-        CPU)."""
+        """Wait for the executor's queued work (nothing to wait for on the
+        CPU): the caller's current stream on the device, where all of it
+        runs.  Not a device-wide synchronize, which CUDA refuses
+        while another thread captures a graph (serve/server.py)."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _hash_many(self, values) -> np.ndarray:
         """Memoized value hashing (shared across queries / plans), bounded:

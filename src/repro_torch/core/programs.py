@@ -33,7 +33,19 @@ under two rules, and both must hold:
 * **Replays are serialized on one stream.**  Two programs replayed at once,
   or on two streams, would share those temporaries.  Every replay runs on
   the caller's current stream, and no two threads may replay programs of
-  one ``Programs`` concurrently.
+  one ``Programs`` concurrently (serve/server.py gives one dispatcher
+  thread the engine, on the device's default stream).
+
+Threads.  PyTorch keeps the current device and stream per thread, so a
+capture does not take them from its caller: it runs on its ``Programs``'s
+device, on the side stream of its warm-up.  A capture is thread-local
+(``capture_error_mode="thread_local"``): another thread may allocate,
+copy, synchronize or replay on the card while it runs, a second session
+included, without failing or invalidating it.  Captures themselves are
+serialized process-wide (``_CAPTURE``): ``torch.cuda.graph`` empties the
+allocator's cache before it begins, which the allocator refuses while
+another capture is underway, and the collector switch and the warning
+filter below are process state.
 
 The kernel wrappers count launches in Python, which a replay does not run:
 a program records how much each query-path wrapper's counter rose during
@@ -47,6 +59,7 @@ from __future__ import annotations
 
 import gc
 import math
+import threading
 import warnings
 
 import numpy as np
@@ -60,6 +73,9 @@ from repro_torch.kernels.superkey_filter import ops as sk_ops
 #: the launch counters of the kernel wrappers a query program can capture
 COUNTED = ((bucket_ops, "probe"), (sk_ops, "filter_candidates"),
            (qcr_ops, "score_segments"))
+
+#: serializes captures across threads (module docstring, "Threads")
+_CAPTURE = threading.Lock()
 
 _DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.int8): torch.int8,
            np.dtype(np.bool_): torch.bool}
@@ -114,20 +130,22 @@ class _Graph:
         del warm
         before = _counts()
         self.graph = torch.cuda.CUDAGraph()
-        # the collector must not run inside the capture: freeing a dead
-        # program's graph there is an operation a capture forbids, and it
-        # invalidates the capture
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                with torch.cuda.graph(self.graph, pool=pool):
-                    for static, t in zip(self.out, call()):
-                        static.copy_(t)
-        finally:
-            if collecting:
-                gc.enable()
+        with _CAPTURE, torch.cuda.device(device):
+            # the collector must not run inside the capture: freeing a
+            # dead program's graph there is an operation a capture forbids,
+            # and it invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    with torch.cuda.graph(self.graph, pool=pool, stream=side,
+                                          capture_error_mode="thread_local"):
+                        for static, t in zip(self.out, call()):
+                            static.copy_(t)
+            finally:
+                if collecting:
+                    gc.enable()
         self.ticks = [a - b for a, b in zip(_counts(), before)]
         _add_counts([-n for n in self.ticks])     # capture launched nothing
         for w in caught:

@@ -21,7 +21,7 @@ One switch, three surfaces::
   for the executor's per-node timings.  CUDA launches are asynchronous, so
   a default timing measures *enqueue* cost, not device compute: a seeker
   that launches in 40us and computes for 4ms reports 40us.  With sync
-  timing on, the executor calls ``torch.cuda.synchronize`` on a CUDA
+  timing on, the executor synchronizes its stream on a CUDA
   device after each seeker / combiner / fused group / DAG program before
   reading the clock, so ``ExecInfo.node_seconds`` and
   the trace spans measure real compute — at the price of serializing

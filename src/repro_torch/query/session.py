@@ -17,8 +17,9 @@ physical ``Plan`` objects are accepted everywhere an expression is.
 ``drop_table`` / ``compact`` / ``snapshot``, ``restore`` reopens a
 snapshot and ``recover`` replays snapshot + write-ahead log.
 ``connect(lake, cache=True)`` gives the session a semantic query cache
-(serve/cache.py).  Sharding, the approximate tier and the serving front
-tier raise ``NotImplementedError`` naming their ROADMAP item.
+(serve/cache.py); ``explain(server=)`` renders the batching server's
+stats (serve/server.py).  Sharding and the approximate tier raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -42,7 +43,6 @@ from repro_torch.store.live import LiveLake
 _LATER = {
     "shards": "sharding (ROADMAP queue A, item A6)",
     "approx": "the approximate tier (ROADMAP queue A, item A7)",
-    "server": "the serving front tier (ROADMAP queue A, item A5b)",
 }
 
 
@@ -119,6 +119,7 @@ class Explain:
     launches: int = 0                 # device-program dispatches (ExecInfo)
     index_shape: dict = field(default_factory=dict)   # Session.index_shape
     cache: dict = field(default_factory=dict)         # query-cache telemetry
+    server: dict = field(default_factory=dict)        # front-tier telemetry
     metrics: dict = field(default_factory=dict)       # obs registry snapshot
 
     def __str__(self):
@@ -145,6 +146,26 @@ class Explain:
             lines.append(f"  entries: {c['entries']}   bytes: {c['bytes']}   "
                          f"evictions: {c['evictions']}   "
                          f"invalidations: {c['invalidations']}")
+        if self.server:
+            s = self.server
+            depth = s["queue_depth"]
+            lines.append("== server ==")
+            lines.append(
+                "  queue depth: "
+                + "   ".join(f"{k}: {v}" for k, v in depth.items()))
+            occ = s["lane_occupancy"]
+            lines.append(
+                "  lane occupancy: "
+                + "   ".join(f"{k}: {v['depth']}/{v['max_queue']}"
+                             for k, v in occ.items()))
+            lines.append(f"  served: {s['served']}   "
+                         f"shed: {s['shed']['total']} "
+                         f"(rate_limit: {s['shed'].get('rate_limit', 0)}, "
+                         f"queue_full: {s['shed'].get('queue_full', 0)})")
+            lines.append(f"  batches: {s['batches']['formed']}   "
+                         f"mean size: {s['batches']['mean_size']:.2f}   "
+                         f"launches/batch: "
+                         f"{s['launches']['per_batch_mean']:.2f}")
         if self.metrics:
             m = self.metrics
             lines.append("== metrics ==")
@@ -436,10 +457,11 @@ class Session:
         ranked physical order, and per-node timings from the actual
         execution.  ``fused=True`` executes on the fused path: the
         ``launches`` line then shows the collapsed dispatch count (<=
-        n_kinds + 1).  With ``repro_torch.obs`` enabled the transcript also
+        n_kinds + 1).  ``server=`` attaches front-tier telemetry
+        (``DiscoveryServer.stats()``), rendered as the ``== server ==``
+        section: queue depth, lane occupancy, shed counts, launches per
+        batch.  With ``repro_torch.obs`` enabled the transcript also
         carries the metrics snapshot (``== metrics ==``)."""
-        if server:
-            _not_ported("server")
         compiled = q if isinstance(q, Compiled) else self.compile(q, top=top)
         if compiled.logical is not None:
             tree = compiled.logical.render()
@@ -467,6 +489,7 @@ class Session:
                        overflow=info.overflow if execute else 0, ids=ids,
                        launches=info.launches,
                        index_shape=self.index_shape(), cache=cache_info,
+                       server=dict(server) if server else {},
                        metrics=obs.registry().snapshot()
                        if obs.enabled() else {})
 

@@ -1,7 +1,10 @@
-"""The serving tier: the query cache (``cache.py``) and the discovery
-engine (``engine.py``: ``DiscoveryEngine.serve`` / ``serve_many``).
+"""The serving tier: the query cache (``cache.py``), the discovery engine
+(``engine.py``: ``DiscoveryEngine.serve`` / ``serve_many``), and the
+batching front tier over it: the batch former and admission control
+(``batching.py``), the threaded ``DiscoveryServer`` and its asyncio façade
+(``server.py``), the retrying client (``client.py``) and the trace-driven
+load generator (``loadgen.py``).
 
-The batch former, the threaded server, its client and the load generator
-come with ROADMAP queue A, item A5b; ``LMEngine`` with item A8.  Nothing
-is imported here, so ``import repro_torch.serve.cache`` loads no engine.
+``LMEngine`` comes with ROADMAP queue A, item A8.  Nothing is imported
+here, so ``import repro_torch.serve.cache`` loads no engine.
 """

@@ -7,7 +7,8 @@ synchronizing, drains the device once and fetches every response's
 (scores, mask) in one device-to-host copy.
 
 The JAX package's ``LMEngine`` comes with ROADMAP queue A, item A8; this
-module imports no train module.
+module imports no train module.  The batching front tier over this engine
+is ``serve/server.py``.
 """
 from __future__ import annotations
 
@@ -71,9 +72,20 @@ class DiscoveryResponse:
     # partial / miss, seekers served against run, resident entries and
     # bytes, evictions, epoch invalidations.  None with the cache off.
     cache: dict | None = None
+    # front-tier telemetry (serve/server.py): time spent queued before the
+    # batch dispatched, and how many requests were coalesced into that
+    # batch.  Direct serve / serve_many calls keep the defaults (no queue,
+    # batch of one).
+    queue_seconds: float = 0.0
+    batch_size: int = 1
     # dense f32 [n_tables] score vector (host copy): the full ranking
     # evidence behind table_ids
     scores: object = None
+    # per-request flight-recorder span tree (obs/trace.py Span), set by
+    # DiscoveryServer(trace=True): queue wait, batch, epoch pin, per-kind
+    # probes, the DAG merge, drain, host transfer.  None unless the server
+    # is tracing.
+    trace: object = None
 
     @property
     def total_node_seconds(self) -> float:

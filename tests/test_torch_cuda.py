@@ -10,7 +10,12 @@ place), that live ``bucket`` equals live ``sorted`` and the CPU port
 through add, drop, compact and ``reclaim_ids``, that an arena growth drops
 the old generation's programs and still answers, that a stream of new
 geometries holds the device memory flat once the program cache is full,
-and that ``recover`` on the card equals the session it replaces.
+and that ``recover`` on the card equals the session it replaces.  The
+batching server's tests check that its dispatcher thread captures
+programs that record work and replays programs the main thread captured,
+with answers equal to sequential ``serve``; that it captures while
+another thread serves a second session on the card; and that mutation
+barriers give the answers of a sequential replay.
 This file imports no JAX, so it runs on the H100 machine as it is:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
@@ -789,3 +794,208 @@ def test_live_recover_on_card(fused_lake, tmp_path):
         got = back.query(x, fused=True)
         assert got.ids == w.ids
         assert torch.equal(got.scores, w.scores)
+
+
+# ------------------------------------------------- the batching server
+
+def _server_batch(lake, tab):
+    """Five requests over table ``tab``: the fused plan, and expressions
+    of every seeker kind; the same shapes for every ``tab``."""
+    t = lake.tables[tab]
+    sc = blend.sc(list(t.columns[0][:6]), k=12)
+    kw = blend.kw([t.columns[1][0], t.columns[1][1]], k=12)
+    mc = blend.mc([(t.columns[0][r], t.columns[1][r]) for r in range(4)],
+                  k=12)
+    corr = blend.corr(list(t.columns[0][:6]), [float(i) for i in range(6)],
+                      k=12, h=64)
+    return [_fused_plan(lake, tab), (sc & kw).top(8), (mc | corr).top(8),
+            blend.counter(sc, kw, mc, k=8), corr]
+
+
+def _same_response(got, want, ctx=""):
+    assert not isinstance(got, BaseException), (ctx, got)
+    assert got.table_ids == want.table_ids, ctx
+    assert np.array_equal(got.scores, want.scores), ctx
+
+
+def _traced_kernels(fn) -> list:
+    """Launches of each query-path kernel (``QUERY_WRAPPERS`` order) in
+    the profiler's trace of one call of ``fn`` (after a warm-up call and
+    a marker kernel)."""
+    names = _device_events(fn)
+    return [sum(f"{k}_kernel" in n for n in names)
+            for k in ("bucket_probe", "superkey_filter_rows", "qcr_segments")]
+
+
+def test_dispatcher_first_capture_records_work_on_card(fused_lake):
+    """A server over a fresh engine: the dispatcher thread captures every
+    program (no empty graph: the warning is an error here), its replays
+    launch the query-path kernels (ticked and traced alike), and with new
+    values of the same shapes its answers equal sequential ``serve`` on
+    the main thread, bit for bit."""
+    import warnings
+    from repro_torch.serve.server import DiscoveryServer
+    lake, _ = fused_lake
+    batches = [_server_batch(lake, 3), _server_batch(lake, 9)]
+    seq = DiscoveryEngine(lake, backend="bucket")
+    want = [[seq.serve(q, fused=True) for q in b] for b in batches]
+    eng = DiscoveryEngine(lake, backend="bucket")
+    built = sum(seek.TRACE_COUNTS.values())
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*CUDA Graph is empty.*")
+        # a batch closes when full: every batch is the five requests
+        srv = DiscoveryServer(eng, max_batch=len(batches[0]),
+                              interactive_window_s=1.0)
+        try:
+            futs = [srv.submit(q) for q in batches[0]]
+            for f, w in zip(futs, want[0]):
+                _same_response(f.result(timeout=120), w)
+            assert sum(seek.TRACE_COUNTS.values()) > built
+            captured = sum(seek.TRACE_COUNTS.values())
+            ticks = [f.launches for f in QUERY_WRAPPERS]
+
+            def second():
+                got = [srv.submit(q) for q in batches[1]]
+                for f, w in zip(got, want[1]):
+                    _same_response(f.result(timeout=120), w)
+
+            traced = _traced_kernels(second)     # calls it twice
+            ticked = [f.launches - n for f, n in zip(QUERY_WRAPPERS, ticks)]
+            assert sum(seek.TRACE_COUNTS.values()) == captured
+            assert all(n > 0 for n in ticked)
+            assert [2 * n for n in traced] == ticked
+        finally:
+            srv.stop()
+
+
+def test_main_thread_programs_replay_from_dispatcher_on_card(fused_lake):
+    """Programs captured by ``serve_many`` on the main thread replay from
+    the dispatcher thread with other values: no capture, the kernels
+    launched, and every answer equal to the CPU port's."""
+    from repro_torch.serve.server import DiscoveryServer
+    lake, _ = fused_lake
+    eng = DiscoveryEngine(lake, backend="bucket")
+    cpu = DiscoveryEngine(lake, backend="bucket", device="cpu")
+    eng.serve_many(_server_batch(lake, 3), fused=True)
+    torch.cuda.synchronize()
+    built = dict(seek.TRACE_COUNTS)
+    ticks = [f.launches for f in QUERY_WRAPPERS]
+    batch = _server_batch(lake, 9)
+    srv = DiscoveryServer(eng, max_batch=16, start=False)
+    try:
+        futs = [srv.submit(q) for q in batch]   # one batch, as captured
+        srv.start()
+        got = [f.result(timeout=120) for f in futs]
+    finally:
+        srv.stop()
+    assert dict(seek.TRACE_COUNTS) == built
+    assert all(f.launches > n for f, n in zip(QUERY_WRAPPERS, ticks))
+    assert max(r.batch_size for r in got) == len(batch)
+    for g, q in zip(got, batch):
+        _same_response(g, cpu.serve(q))
+
+
+def test_dispatcher_captures_while_another_thread_serves_on_card(
+        fused_lake):
+    """The dispatcher captures a new program for every request (a new
+    ``k`` each) while another thread serves a second session on the card,
+    fused (capturing programs of its own) and unfused (eager kernels,
+    allocations, synchronizations): no capture fails, and every answer of
+    both equals the CPU port's."""
+    import threading
+    from repro_torch.serve.server import DiscoveryServer
+    lake, _ = fused_lake
+    t, u = lake.tables[3], lake.tables[9]
+    cpu = DiscoveryEngine(lake, backend="bucket", device="cpu")
+    ks = range(2, 26)
+    mine = [(blend.sc(list(t.columns[0][:8]), k=k) |
+             blend.kw([t.columns[1][0]], k=k)).top(k) for k in ks]
+    theirs = [(blend.mc([(u.columns[0][r], u.columns[1][r])
+                         for r in range(3)], k=k) &
+               blend.corr(list(u.columns[0][:6]),
+                          [float(i) for i in range(6)], k=k, h=64)).top(k)
+              for k in ks]
+    other = DiscoveryEngine(lake, backend="bucket")
+    srv = DiscoveryServer(DiscoveryEngine(lake, backend="bucket"))
+    stop, seen, failures = threading.Event(), [], []
+
+    def serve_other():
+        try:
+            while not stop.is_set():
+                for q in theirs:
+                    for fused in (True, False):
+                        seen.append((q, other.serve(q, fused=fused)))
+        except BaseException as e:                    # noqa: BLE001
+            failures.append(e)
+
+    worker = threading.Thread(target=serve_other)
+    built = sum(seek.TRACE_COUNTS.values())
+    worker.start()
+    try:
+        got = [srv.submit(q).result(timeout=120) for q in mine]
+    finally:
+        stop.set()
+        worker.join(timeout=300)
+        srv.stop()
+    assert not worker.is_alive() and not failures, failures
+    assert sum(seek.TRACE_COUNTS.values()) - built >= len(mine)
+    for g, q in zip(got, mine):
+        _same_response(g, cpu.serve(q))
+    want = {id(q): cpu.serve(q) for q in theirs}
+    assert len(seen) >= len(theirs)
+    for q, r in seen:
+        _same_response(r, want[id(q)])
+
+
+def _mapped_equal(got, want, tid_got, tid_want, ctx=""):
+    """``got`` equals ``want`` with table ``tid_got`` read as
+    ``tid_want`` (a re-added table may take a new id)."""
+    assert [tid_want if t == tid_got else t for t in got.table_ids] == \
+        want.table_ids, ctx
+    n = max(len(got.scores), len(want.scores))
+    a, b = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    a[:len(got.scores)], b[:len(want.scores)] = got.scores, want.scores
+    a[tid_want], a[tid_got] = a[tid_got], (0.0 if tid_got != tid_want
+                                           else a[tid_got])
+    assert np.array_equal(a, b), ctx
+
+
+def test_server_live_barriers_on_card(fused_lake):
+    """From one thread, without waiting: queries, ``add_table(guard)``,
+    queries, ``drop_table`` by name, queries.  The guard ranks first only
+    in the middle batch, and every answer equals a sequential replay of the
+    same operations on the main thread after ``stop()``."""
+    from repro_torch.serve.server import DiscoveryServer
+    lake, _ = fused_lake
+    eng = DiscoveryEngine(lake, live=True, backend="bucket")
+    guard = _guard_table("g0", "guardx")
+    qs = _server_batch(lake, 3) + [
+        blend.kw(["guardx_1", "guardx_2"], k=5),
+        blend.sc([f"guardx_{i}" for i in range(8)], k=5)]
+    srv = DiscoveryServer(eng, max_batch=16, interactive_window_s=0.05)
+    try:
+        pre = [srv.submit(q) for q in qs]
+        add = srv.add_table(guard, name="g0")
+        mid = [srv.submit(q) for q in qs]
+        drop = srv.drop_table("g0")
+        post = [srv.submit(q) for q in qs]
+        steps = [[f.result(timeout=120) for f in fs]
+                 for fs in (pre, mid, post)]
+        tid = add.result(timeout=120)
+        assert drop.result(timeout=120) == tid
+    finally:
+        srv.stop()
+    for i, step in enumerate(steps):
+        for r in step:
+            assert not isinstance(r, BaseException), r
+        guard_first = [r.table_ids[:1] == [tid] for r in step[-2:]]
+        assert guard_first == [i == 1] * 2, i
+        assert all(i == 1 or tid not in r.table_ids for r in step)
+    replay = [[eng.serve(q, fused=True) for q in qs]]
+    tid2 = eng.add_table(guard, name="g0")
+    replay.append([eng.serve(q, fused=True) for q in qs])
+    eng.drop_table("g0")
+    replay.append([eng.serve(q, fused=True) for q in qs])
+    for i, (step, want) in enumerate(zip(steps, replay)):
+        for j, (g, w) in enumerate(zip(step, want)):
+            _mapped_equal(g, w, tid, tid2, (i, j))

@@ -205,8 +205,6 @@ def test_later_slices_raise_not_implemented(sessions, tmp_path):
     engine = DiscoveryEngine(lake, session=port)
     with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
         engine.serve(expr, approx={"epsilon": 0.0})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A5"):
-        port.explain(expr, server={"x": 1})
 
 
 # ------------------------------------ the static-index members of the surface
@@ -268,14 +266,24 @@ def test_index_shape_and_explain_index_block_match_reference(sessions,
 
 
 def test_explain_fused_and_server_raise_not_implemented(sessions):
-    """``server=`` still raises (it comes with A5); ``fused=True`` now runs
-    and gives the unfused ids."""
-    _, _, ports = sessions
+    """Neither raises any more: ``server=`` (a ``DiscoveryServer.stats()``
+    dict) renders the ``== server ==`` section, and ``fused=True`` runs and
+    gives the unfused ids."""
+    from repro_torch.serve.engine import DiscoveryEngine
+    from repro_torch.serve.server import DiscoveryServer
+    lake, _, ports = sessions
     port = ports["sorted"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A5"):
-        port.explain(README_SQL, server={"x": 1})
+    with DiscoveryServer(DiscoveryEngine(lake, session=port)) as srv:
+        srv.serve(README_SQL)
+        stats = srv.stats()
+    ex = port.explain(README_SQL, server=stats)
+    assert ex.server == stats and ex.server["served"] == 1
+    lines = str(ex).splitlines()
+    at = lines.index("== server ==")
+    assert lines[at + 1].startswith("  queue depth: interactive: 0")
+    assert "== server ==" not in str(port.explain(README_SQL))
     unfused = port.explain(README_SQL, fused=False, server=None)
-    assert unfused.ids
+    assert unfused.ids and unfused.ids == ex.ids
     assert port.explain(README_SQL, fused=True).ids == unfused.ids
 
 
@@ -300,6 +308,13 @@ from repro_torch.serve.engine import DiscoveryEngine
 eng = DiscoveryEngine(lake, cache=True, backend="bucket", device="cpu")
 got = eng.serve_many([blend.kw(["tok_3"]), blend.kw(["tok_3"])])
 assert got[0].table_ids == got[1].table_ids and got[1].cache["status"] == "hit"
+from repro_torch.serve import client, loadgen
+from repro_torch.serve.server import DiscoveryServer
+with DiscoveryServer(eng) as srv:
+    resp = client.RetryingClient(srv).serve(blend.kw(["tok_3"]))
+    assert resp.table_ids == got[0].table_ids and srv.stats()["served"] == 1
+assert not srv.stats()["running"]
+assert loadgen.make_trace(lake, duration_s=0.1).events
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
              or m in ("repro", "blend"))
