@@ -133,6 +133,34 @@ Phases (each prints JSON lines):
    ten on the live store) is held to the plain versions.  The launch
    counters are set to 0 at the start of each part and read at its end.
 
+8. shards (run after 7's static part, before 5): ``connect(lake,
+   shards=4, live=True, backend="bucket")`` on the same lake, shard i on
+   ``cuda:(i % device_count)`` (all four on one card; one per card on
+   four).  The queries fused, warmed, then 5 timed runs each: every result
+   equals phase 3's, ids and scores, with overflow 0, ``ExecInfo.launches``
+   equal to phase 3b's and no capture in the timed runs; p50 beside 3b's,
+   each seeker group's per-shard probe window beside the global one (from
+   the ``shard:`` spans), the per-shard probe ms and ``shard.imbalance``
+   under synchronized timing, ``host_counts`` ms; one profiled run per
+   query (traced = ticked launches).  Live: the guard table added,
+   dropped and re-added on this session and on an unsharded live session
+   (the witness, phase 5's executor), equal after each step, with exactly
+   one shard's epoch moved; a sharded ``snapshot``, a drop logged after
+   it, and ``recover`` from the snapshot and the WAL, equal to the session
+   it replaces (epoch tuple included).  On the recovered session: shard 1
+   failing once is retried transparently (equal to the clean run, and so
+   is a warm run after it); failing twice on ``sc``, and failing on every
+   probe for all the queries, gives ``failed_shards == [1]`` and answers
+   equal, ids and scores, to the witness with every table of shard 1
+   dropped; ``serve_many`` makes one device-to-host copy and equals
+   sequential ``serve``, and so does a ``DiscoveryServer`` pass of 4
+   threads x the queries.  Every kernel input shape of the phase
+   (recorded on throwaway sharded executors over the static store, the
+   store with the guard's delta, and the recovered one) is held to the
+   plain versions.  The launch counters are set to 0 at the phase's start
+   and read at its end; the launches of the witness and of phase 3's
+   session (its windows) are taken back off them.
+
 Any phase that captures an empty CUDA graph fails: that warning is an
 error here.  A ``replaced_kernels`` line quotes, as constants not measured in the run,
 the device times of the superkey kernels this version replaced
@@ -152,6 +180,7 @@ import sys
 import tempfile
 import time
 import warnings
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -160,10 +189,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import repro_torch as blend  # noqa: E402  (fails outside a checkout)
-from repro_torch import obs  # noqa: E402
+from repro_torch import faults, obs  # noqa: E402
 from repro_torch.core import seekers as seek  # noqa: E402
 from repro_torch.core.executor import Executor  # noqa: E402
 from repro_torch.core.lake import DataLake, synthetic_lake  # noqa: E402
+from repro_torch.dist.shard import ShardedExecutor  # noqa: E402
+from repro_torch.faults import FaultInjector  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bucket_probe import ops as bucket_ops  # noqa: E402
 from repro_torch.kernels.bucket_probe.ref import bucket_probe_ref  # noqa
@@ -202,6 +233,12 @@ F32_3XTF32_OPS_PER_S = TENSOR_TF32_OPS_PER_S / 3
 SEED = 0
 MARKER = "spin_kernel"        # the kernel torch.cuda._sleep launches
 TRACE_TRIES = 3               # profiled sessions a trace check may take
+#: profiler sessions ``device_events`` may take to find its marker: late in
+#: a run a session on the H100 machine now and then ends early, losing the
+#: marker and all after it (PERF.md section 7)
+MARKER_TRIES = 8
+#: profiler sessions ``device_events`` has opened in this run
+profiler_sessions = 0
 ABSORBED = 16                 # kernels a profiled session starts with
 
 #: name -> (wrapper module, wrapper attribute, plain version, source, TPU kernel)
@@ -424,11 +461,16 @@ def device_events(fn, iters):
     lacks}).  The profiler on the H100 machine drops the earliest device
     records of a session (PERF.md section 6), so ``ABSORBED`` small
     kernels and the first run absorb that loss and only what follows a
-    marker kernel (``torch.cuda._sleep``) is read; a session whose trace lost the marker too is run again, up
-    to ``TRACE_TRIES`` times."""
+    marker kernel (``torch.cuda._sleep``) is read; a session whose trace
+    lost the marker is run again, up to ``MARKER_TRIES`` times (each loss
+    is printed as a ``trace_markers`` line: the session's ordinal in the run
+    and the device records its trace kept)."""
+    global profiler_sessions
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(TRACE_TRIES):
+    lost_markers = []
+    for _ in range(MARKER_TRIES):
+        profiler_sessions += 1
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -457,9 +499,14 @@ def device_events(fn, iters):
                  if MARKER in name]
         if len(marks) == 1:
             break
+        lost_markers.append([profiler_sessions, len(device)])
     else:
         raise AssertionError(f"the profiler's trace lost the marker kernel "
-                             f"in {TRACE_TRIES} sessions")
+                             f"in {MARKER_TRIES} sessions (device records: "
+                             f"{lost_markers})")
+    if lost_markers:
+        emit({"phase": "trace_markers",
+              "session_and_device_records_without_marker": lost_markers})
     events: dict = {}
     for _, name, ns in device[marks[0] + 1:]:
         rec = events.setdefault(name, [0, 0.0])
@@ -677,8 +724,27 @@ def reset_launches():
         getattr(mod, attr).launches = 0
 
 
+@contextmanager
+def uncounted():
+    """Launches made inside are a comparison's, not the path's: taken back
+    off the counters on the way out."""
+    counts = kernel_launches()
+    try:
+        yield
+    finally:
+        for (mod, attr, *_rest), n in zip(KERNELS.values(), counts.values()):
+            getattr(mod, attr).launches = n
+
+
 def same_result(got, want) -> bool:
     return got.ids == want.ids and torch.equal(got.scores, want.scores)
+
+
+def same_prefix(got, want, n) -> bool:
+    """A result over a live store (``n_tables`` slots with headroom) equals
+    a static result over the lake's ``n`` tables."""
+    return got.ids == want.ids and torch.equal(got.scores[:n], want.scores) \
+        and not bool(got.scores[n:].any())
 
 
 def run_fused_path(session, queries, unfused) -> dict:
@@ -764,7 +830,7 @@ def run_fused_path(session, queries, unfused) -> dict:
     if idle:
         raise AssertionError(f"no launch of {idle} in the fused path's "
                              f"trace")
-    return kernels
+    return kernels, p50, launches
 
 
 def check_results(session, results):
@@ -982,26 +1048,24 @@ def check_path_kernels(session, queries, phase="live_kernels",
     (``record_kernel_inputs`` on ``session``, or whatever ``drive``
     runs), the kernel equal to its plain version there; one ``phase``
     line.  These comparison launches are taken back off the counters."""
-    counts = kernel_launches()
-    _, _, shapes = record_kernel_inputs(session, queries, drive)
     checked = {}
-    for name, (mod, attr, plain, *_rest) in KERNELS.items():
-        wrapper = getattr(mod, attr)
-        checked[name] = []
-        for args, kwargs in shapes[name].values():
-            plain_kwargs = {"min_support": kwargs["min_support"]} \
-                if "min_support" in kwargs else {}
-            got = wrapper(*args, **kwargs)
-            want = plain(*args, **plain_kwargs)
-            torch.cuda.synchronize()
-            if got.dtype != want.dtype or not torch.equal(got, want):
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version at {list(got.shape)} in "
-                                     f"{phase}")
-            checked[name].append([list(a.shape) for a in args
-                                  if torch.is_tensor(a)])
-    for (mod, attr, *_rest), n in zip(KERNELS.values(), counts.values()):
-        getattr(mod, attr).launches = n
+    with uncounted():
+        _, _, shapes = record_kernel_inputs(session, queries, drive)
+        for name, (mod, attr, plain, *_rest) in KERNELS.items():
+            wrapper = getattr(mod, attr)
+            checked[name] = []
+            for args, kwargs in shapes[name].values():
+                plain_kwargs = {"min_support": kwargs["min_support"]} \
+                    if "min_support" in kwargs else {}
+                got = wrapper(*args, **kwargs)
+                want = plain(*args, **plain_kwargs)
+                torch.cuda.synchronize()
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    raise AssertionError(f"{name} disagrees with its plain "
+                                         f"version at {list(got.shape)} in "
+                                         f"{phase}")
+                checked[name].append([list(a.shape) for a in args
+                                      if torch.is_tensor(a)])
     del shapes
     gc.collect()
     emit({"phase": phase, "equal": True, "shapes": checked})
@@ -1071,9 +1135,7 @@ def run_live_path(lake, queries, static_results, static_connect_s) -> tuple:
     unfused = run_all(session, queries, fused=False)
     for label, want in static_results.items():
         for got in (res[label], unfused[label]):
-            if got.ids != want.ids or \
-                    not torch.equal(got.scores[:n], want.scores) or \
-                    bool(got.scores[n:].any()):
+            if not same_prefix(got, want, n):
                 raise AssertionError(f"live {label} differs from phase 3")
     step("add_tables", lambda: session.add_tables(adds))
     _, res = step("drop_tables",
@@ -1990,6 +2052,401 @@ def server_live(back, queries, guard, guard_tid) -> tuple:
     return launches, shapes
 
 
+# ---------------------------------------------------------- phase 8: shards
+
+#: phase 8's shard count: the JAX package's ``shards4`` configurations
+SHARDS = 4
+
+
+def shard_windows(session, q) -> dict:
+    """One fused run of ``q`` under a span recorder: {seeker group:
+    {``shard:s``: the rung of its probe window}}, read from the fused
+    path's ``probe:`` and ``shard:`` spans."""
+    rec = otrace.Recorder()
+    with otrace.recording(rec):
+        run_query(session, q, fused=True)
+    torch.cuda.synchronize()
+    out = {}
+    for root in rec.roots:
+        for span in root.walk():
+            if span.name.startswith("probe:"):
+                out[span.name[len("probe:"):]] = {
+                    c.name: c.attrs["m_cap"] for c in span.children
+                    if c.name.startswith("shard:")}
+    return out
+
+
+def shard_timing(session, q) -> dict:
+    """One fused run of ``q`` under synchronized timing: each shard's probe
+    seconds summed over the query's groups (ms), and the ``shard.imbalance``
+    gauge of its last group launch."""
+    reg = obs.enable(sync_timing=True)
+    try:
+        run_query(session, q, fused=True)
+        snap = reg.snapshot()
+    finally:
+        obs.disable()
+    hist = snap["histograms"]
+    return {"probe_ms": [hist[f"shard.probe_seconds.{s}"]["sum"] * 1e3
+                         for s in range(SHARDS)],
+            "imbalance": snap["gauges"].get("shard.imbalance")}
+
+
+def shard_counters(fn) -> tuple:
+    """(``fn()``, the ``shard.*`` counters it ticked)."""
+    reg = obs.enable()
+    try:
+        out = fn()
+        counters = reg.snapshot()["counters"]
+    finally:
+        obs.disable()
+    return out, {k: v for k, v in counters.items() if k.startswith("shard.")}
+
+
+def record_sharded(store, queries):
+    """The sharded path's kernel inputs: each query fused and all of them
+    as one ``query_many`` (the groups a server batch of them forms), on a
+    throwaway ``ShardedExecutor`` over ``store``."""
+    def drive():
+        session = blend.Session(ShardedExecutor(store, backend="bucket"))
+        for q in queries.values():
+            run_query(session, q, fused=True)
+        session.query_many(list(queries.values()))
+        torch.cuda.synchronize()
+    return drive
+
+
+def sharded_static(session, queries, static_session, fused_ref) -> dict:
+    """Phase 8, static part: the queries fused on the 4-shard session,
+    warmed, then REPEATS timed runs each; every result equal to phase 3's,
+    overflow 0, ``ExecInfo.launches`` equal to phase 3b's, no capture in
+    the timed runs; the windows, per-shard probe ms and imbalance."""
+    results, p50_fused, launches_fused = fused_ref
+    n = static_session.index.n_tables
+    built0 = sum(seek.TRACE_COUNTS.values())
+    t0 = time.perf_counter()
+    for q in queries.values():
+        run_query(session, q, fused=True)
+    batch = list(queries.values())
+    session.query_many(batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    built = sum(seek.TRACE_COUNTS.values()) - built0
+    p50, launches, bad = {}, {}, []
+    for label, q in queries.items():
+        times = []
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            res = run_query(session, q, fused=True)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        p50[label] = {"sharded": statistics.median(times),
+                      "fused": p50_fused[label]["fused"]}
+        launches[label] = {"sharded": res.info.launches,
+                           "fused": launches_fused[label]["fused"]}
+        if not same_prefix(res, results[label], n) or res.info.overflow \
+                or res.info.failed_shards or \
+                res.info.launches != launches_fused[label]["fused"]:
+            bad.append(label)
+    times = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        outs = session.query_many(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    bad += [f"query_many {label}" for label, res in zip(queries, outs)
+            if not same_prefix(res, results[label], n)]
+    captures = sum(seek.TRACE_COUNTS.values()) - built0 - built
+    with uncounted():
+        windows = {label: shard_windows(static_session, q)
+                   for label, q in queries.items()}
+    windows = {label: {"global": windows[label],
+                       "per_shard": shard_windows(session, q)}
+               for label, q in queries.items()}
+    timing = {label: shard_timing(session, q)
+              for label, q in queries.items()}
+    line = {"phase": "shard", "shards": SHARDS,
+            "devices": [str(d) for d in session.executor.devices],
+            "p50_ms": p50, "query_many_p50_ms": statistics.median(times),
+            "repeats": REPEATS, "exec_launches": launches,
+            "overflow": sum(r.info.overflow for r in outs),
+            "programs_built_in_warm_up": built, "warm_up_seconds": warm_s,
+            "captures_in_timed_runs": captures, "windows": windows,
+            "shard_probe": timing,
+            "per_shard_programs": [len(sh.programs)
+                                   for sh in session.executor.shards],
+            "host_counts": host_counts_ms(session.live.store,
+                                          queries["sc"].values),
+            "shard_postings": [s.n_postings
+                               for s in session.live.store.shards]}
+    emit(line)
+    if bad:
+        raise AssertionError(f"sharded results differ from phases 3 / 3b: "
+                             f"{bad}")
+    if captures:
+        raise AssertionError(f"{captures} programs captured in the sharded "
+                             f"timed runs")
+    busy, traced, ticked, lost = traced_launches(session, queries)
+    emit({"phase": "shard_device_busy", "note": "one profiled run per query",
+          "queries": busy, "kernel_launches_traced": traced,
+          "kernel_launches_ticked": ticked,
+          "warm_up_launches_untraced": lost})
+    idle = [name for name, k in traced.items() if k == 0]
+    if idle:
+        raise AssertionError(f"no launch of {idle} in the sharded trace")
+    return line
+
+
+def sharded_live(session, lake, queries, guard) -> tuple:
+    """Phase 8, live part: add, drop and re-add the guard table on the
+    4-shard session and on the witness, an unsharded live session (phase
+    5's executor, none of the shard machinery), equal after each step with
+    exactly one shard's epoch moved, the kernel inputs of the lake with
+    the guard's delta held to the plain versions; a sharded snapshot, a
+    drop logged after it (on both), and ``recover``, equal to the session
+    it replaces.  The witness's launches are not the path's.  Returns (the
+    recovered session, its clean results, the number of distinct inputs of
+    each kernel checked, the witness in the recovered session's state)."""
+    tmp = session.live.wal.path.parent
+    snap = tmp / "lake.snap"
+    t0 = time.perf_counter()
+    witness = blend.connect(lake, live=True, backend="bucket")
+    witness_connect_s = time.perf_counter() - t0
+    ex = session.executor
+    steps, bad = [], []
+
+    def step(name, mutate, check=None):
+        before = session.live.store.epoch
+        t0 = time.perf_counter()
+        out = mutate(session)
+        mutate_ms = (time.perf_counter() - t0) * 1e3
+        after = session.live.store.epoch
+        moved = [s for s, (a, b) in enumerate(zip(before, after)) if a != b]
+        built0 = sum(seek.TRACE_COUNTS.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.refresh()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = run_all(session, queries, fused=True)
+        pass_ms = (time.perf_counter() - t1) * 1e3
+        built = sum(seek.TRACE_COUNTS.values()) - built0
+        with uncounted():
+            if mutate(witness) != out:
+                bad.append(f"{name}: the witness's id differs")
+            want = run_all(witness, queries, fused=True)
+        bad.extend(f"{name} {label}" for label in queries
+                   if not same_result(got[label], want[label]))
+        if check is not None:
+            check(got, out)
+        line = {"step": name, "mutate_ms": mutate_ms,
+                "refresh_ms": (t1 - t0) * 1e3, "first_pass_ms": pass_ms,
+                "moved_shards": moved, "epoch": list(after),
+                "programs_built": built,
+                "arena_copied_bytes": [sh.arena.copied_bytes
+                                       for sh in ex.shards]}
+        steps.append(line)
+        return out, line
+
+    tid, line = step("add_table", lambda s: s.add_table(guard),
+                     lambda got, t: check_guard(got, t, True, "add_table"))
+    if len(line["moved_shards"]) != 1:
+        bad.append(f"add_table moved {line['moved_shards']}")
+    _, line = step("drop_table", lambda s: s.drop_table(tid),
+                   lambda got, t: check_guard(got, t, False, "drop_table"))
+    if len(line["moved_shards"]) != 1:
+        bad.append(f"drop_table moved {line['moved_shards']}")
+    tid2, line = step(
+        "add_table_again",
+        lambda s: s.add_table(guard, name="live_guard_again"),
+        lambda got, t: check_guard(got, t, True, "add_table_again"))
+    if len(line["moved_shards"]) != 1:
+        bad.append(f"add_table_again moved {line['moved_shards']}")
+    shapes = check_path_kernels(session, queries, "shard_live_kernels",
+                                record_sharded(session.live.store, queries))
+    t0 = time.perf_counter()
+    session.snapshot(str(snap))
+    snap_s = time.perf_counter() - t0
+    snap_bytes = sum(p.stat().st_size for p in tmp.glob("lake.*")
+                     if p.suffix in (".npz", ".json"))
+    step("drop_after_snapshot", lambda s: s.drop_table(tid2),
+         lambda got, t: check_guard(got, t, False, "drop_after_snapshot"))
+    kept = run_all(session, queries, fused=True)
+    epoch = session.live.store.epoch
+    wal = session.live.wal.path
+    del session, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    back = blend.recover(str(snap), wal=str(wal), backend="bucket")
+    recover_s = time.perf_counter() - t0
+    got = run_all(back, queries, fused=True)
+    bad += [f"recover {label}" for label in queries
+            if not same_result(got[label], kept[label])]
+    if back.live.store.epoch != epoch or \
+            not isinstance(back.executor, ShardedExecutor):
+        bad.append(f"recover epoch {back.live.store.epoch} against {epoch}")
+    emit({"phase": "shard_live", "steps": steps,
+          "witness_connect_s": witness_connect_s, "snapshot_s": snap_s,
+          "snapshot_bytes": snap_bytes, "recover_s": recover_s,
+          "epoch": list(epoch),
+          "recovered_epoch": list(back.live.store.epoch)})
+    if bad:
+        raise AssertionError(f"sharded live steps differ: {bad}")
+    return back, got, shapes, witness
+
+
+def sharded_faults(back, queries, clean, witness) -> dict:
+    """Phase 8, shard failures on the recovered session: shard 1 failing
+    once is retried transparently (equal to the clean run, and so is a
+    warm run after it, on the rebuilt shard's new programs); failing twice
+    on ``sc`` (one group) drops it, and failing on every probe drops it
+    from every query: ``failed_shards == [1]`` and each answer equal, ids
+    and scores, to ``witness`` (an unsharded live session in ``back``'s
+    state) with every table of shard 1 dropped, whose launches are not the
+    path's."""
+    store = back.live.store
+    t0 = time.perf_counter()
+    dead = [t for t in witness.live.live_ids() if store.owner_of(t) == 1]
+    for t in dead:
+        witness.drop_table(t)
+    drop_s = time.perf_counter() - t0
+    with uncounted():
+        want = run_all(witness, queries, fused=True)
+    bad = []
+    old = back.executor.shards[1]
+    with faults.inject(FaultInjector(fail={"shard.probe.1": 1})):
+        retried, retry_counters = shard_counters(
+            lambda: run_all(back, queries, fused=True))
+    rebuilt = back.executor.shards[1] is not old
+    del old
+    warm = run_all(back, queries, fused=True)
+    bad += [f"retried {label}" for label in queries
+            if not same_result(retried[label], clean[label])
+            or retried[label].info.failed_shards]
+    bad += [f"warm {label}" for label in queries
+            if not same_result(warm[label], clean[label])]
+    with faults.inject(FaultInjector(fail={"shard.probe.1": 2})):
+        deg, drop_counters = shard_counters(
+            lambda: run_query(back, queries["sc"], fused=True))
+    if deg.info.failed_shards != [1] or not same_result(deg, want["sc"]):
+        bad.append("degraded sc")
+    with faults.inject(FaultInjector(fail={"shard.probe.1": 10 ** 6})):
+        every = run_all(back, queries, fused=True)
+    bad += [f"degraded {label}" for label, res in every.items()
+            if res.info.failed_shards != [1]
+            or not same_result(res, want[label])]
+    after = run_all(back, queries, fused=True)
+    bad += [f"after {label}" for label in queries
+            if not same_result(after[label], clean[label])]
+    line = {"phase": "shard_faults", "retry_counters": retry_counters,
+            "shard_rebuilt": rebuilt, "drop_counters": drop_counters,
+            "witness_drops": len(dead), "witness_drop_s": drop_s,
+            "degraded_sc_ids": len(deg.ids),
+            "degraded_ids_changed": [label for label in queries
+                                     if every[label].ids != clean[label].ids],
+            "degraded_failed_shards": sorted(
+                {tuple(r.info.failed_shards) for r in every.values()})}
+    emit(line)
+    if retry_counters != {"shard.failures": 1, "shard.retries": 1} or \
+            drop_counters != {"shard.failures": 1, "shard.dropped": 1} or \
+            not rebuilt:
+        bad.append(f"counters {retry_counters} {drop_counters}")
+    if bad:
+        raise AssertionError(f"shard failures handled wrongly: {bad}")
+    return line
+
+
+def sharded_serving(back, queries, clean) -> dict:
+    """Phase 8, serving on the recovered session: ``serve_many`` of the
+    queries fused equals sequential ``serve`` and makes one device-to-host
+    copy; a ``DiscoveryServer`` pass of SUBMITTERS threads x the queries
+    equals sequential ``serve``."""
+    engine = DiscoveryEngine(None, session=back)
+    batch = list(queries.values())
+    serial = {label: engine.serve(q, fused=True)
+              for label, q in queries.items()}
+    bad = [label for label, r in serial.items()
+           if not same_response(r, clean[label]) or r.degraded]
+    engine.serve_many(batch, fused=True)
+    _, events, _, _ = device_events(
+        lambda: engine.serve_many(batch, fused=True), 1)
+    many = engine.serve_many(batch, fused=True)
+    bad += [f"serve_many {label}" for label, r in zip(queries, many)
+            if not same_responses(r, serial[label])]
+    splits = [serve_split(engine, batch, True) for _ in range(REPEATS)]
+    srv = DiscoveryServer(engine, max_batch=SERVER_BATCH)
+    try:
+        submitter_pass(srv, queries)
+        built0 = sum(seek.TRACE_COUNTS.values())
+        out, wall = submitter_pass(srv, queries)
+        captures = sum(seek.TRACE_COUNTS.values()) - built0
+    finally:
+        srv.stop()
+    bad += [f"server {label}" for label, r, _ in out
+            if not same_responses(r, serial[label]) or r.degraded]
+    line = {"phase": "shard_serve",
+            "serve_many_dtoh_copies": device_copies(events),
+            "serve_many_p50_ms": {
+                part: statistics.median(sp[part] for sp in splits)
+                for part in ("wall", "execute", "drain", "transfer")},
+            "server_pass_ms": wall, "server_captures": captures,
+            "server_max_batch": max(r.batch_size for _, r, _ in out)}
+    emit(line)
+    if bad:
+        raise AssertionError(f"sharded serving differs: {bad}")
+    if line["serve_many_dtoh_copies"] != 1:
+        raise AssertionError(f"sharded serve_many made "
+                             f"{line['serve_many_dtoh_copies']} "
+                             f"device-to-host copies")
+    return line
+
+
+def run_sharded_path(lake, queries, static_session, fused_ref) -> tuple:
+    """Phase 8 (module docstring) on the smoke lake.  ``static_session``
+    and ``fused_ref`` are phase 3's session and (results, 3b's p50, 3b's
+    launches).  Returns (each kernel's launches in the phase, the number
+    of distinct inputs of each checked against its plain version)."""
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="blend-shard-"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    session = blend.connect(lake, shards=SHARDS, live=True, backend="bucket",
+                            wal=str(tmp / "lake.wal"))
+    connect_s = time.perf_counter() - t0
+    line = sharded_static(session, queries, static_session, fused_ref)
+    shapes = check_path_kernels(session, queries, "shard_kernels",
+                                record_sharded(session.live.store, queries))
+    guard = live_tables(1, 2, "live_guard_")[0]
+    allq = {**queries, **guard_queries(guard)}
+    back, clean, live, witness = sharded_live(session, lake, allq, guard)
+    del session
+    sharded_faults(back, queries, clean, witness)
+    del witness
+    gc.collect()
+    sharded_serving(back, queries, clean)
+    launches = kernel_launches()
+    recovered = check_path_kernels(back, allq, "shard_recovered_kernels",
+                                   record_sharded(back.live.store, allq))
+    shapes = {name: shapes[name] + live[name] + recovered[name]
+              for name in shapes}
+    emit({"phase": "shard_summary", "seconds": time.perf_counter() - t_phase,
+          "connect_s": connect_s, "launches": launches,
+          "shapes_checked": shapes,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "p50_ms": line["p50_ms"]})
+    del back, clean
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"the sharded path never launched {idle}")
+    return launches, shapes
+
+
 def superkey_digests(index):
     """One XASH digest per row of the lake: the index's superkeys at the
     postings of column 0, as int32 bit-views on the card."""
@@ -2294,11 +2751,14 @@ def main() -> int:
     unfused = run_main_path(session, queries)
     results, launches, _ = unfused
     check_results(session, results)
-    fused_launches = run_fused_path(session, queries, unfused)
+    fused_launches, fused_p50, fused_exec = run_fused_path(session, queries,
+                                                           unfused)
     serve_launches, serve_shapes = run_serve_path(lake, session, queries,
                                                   unfused)
     server_launches, server_shapes = run_server_path(lake, session, queries,
                                                      results)
+    shard_launches, shard_shapes = run_sharded_path(
+        lake, queries, session, (results, fused_p50, fused_exec))
     live_launches, live_shapes, live_serve, (live_server, live_server_shapes) \
         = run_live_path(lake, queries, results, t2 - t1)
     for name, n in launches.items():
@@ -2313,6 +2773,8 @@ def main() -> int:
             live_server[name]
         rows[name]["server_shapes_checked"] = server_shapes[name] + \
             live_server_shapes[name]
+        rows[name]["shard_launches"] = shard_launches[name]
+        rows[name]["shard_shapes_checked"] = shard_shapes[name]
 
     # phase 4 inputs from the smoke lake, then free phases 1-3
     queries_sk = (q_lo.clone(), q_hi.clone())
@@ -2323,8 +2785,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    sessions_before = profiler_sessions
     rows.update(run_entry_points(rows_sk, queries_sk, groups))
-    emit({"phase": "entry_points", "seconds": time.perf_counter() - t0})
+    emit({"phase": "entry_points", "seconds": time.perf_counter() - t0,
+          "profiler_sessions": [sessions_before, profiler_sessions]})
     emit({"phase": "replaced_kernels", "measured_in_this_run": False,
           **REPLACED})
     print(json.dumps({"kernels": list(rows.values())}))

@@ -52,8 +52,10 @@ RECENT_CONFIGS = 8
 class OverflowSlice:
     """A lazy view into a fused group's stacked overflow vector: ``rows``
     are this plan's seekers' rows in ``vec``, read when
-    ``ExecInfo.overflow`` is, not at dispatch."""
-    vec: torch.Tensor             # int64 [n_seekers_p] on the device
+    ``ExecInfo.overflow`` is, not at dispatch.  On a sharded lake ``vec``
+    is a *tuple* of per-shard vectors on the merge device (overflow sums
+    across shards, like scores)."""
+    vec: object                   # int64 [n_seekers_p] tensor, or a tuple
     rows: list                    # this plan's row indices into vec
 
 
@@ -72,6 +74,11 @@ class ExecInfo:
     # (compaction stages included) and every combiner node counts one; the
     # fused path counts its group launches + the single DAG program
     launches: int = 0
+    # sharded graceful degradation: indices of shards whose fused probe
+    # failed twice (initial + one retry on a rebuilt engine) and were
+    # zero-substituted out of the merge; the response is flagged degraded
+    # (serve/engine.py DiscoveryResponse) instead of erroring the batch
+    failed_shards: list = field(default_factory=list)
     #: memoized ``overflow`` total (None until first read / batch fetch)
     _overflow: int | None = None
 
@@ -105,14 +112,17 @@ class ExecInfo:
     @staticmethod
     def overflow_vectors(infos) -> dict:
         """{id of a part's vector: that vector as flat int64} over the
-        parts of the infos not yet resolved, each shared vector once."""
+        parts of the infos not yet resolved, each shared vector once; a
+        sharded group's per-shard vectors are stacked, ``[n_shards,
+        n_seekers_p]`` flattened, on the merge device."""
         vecs: dict = {}
         for i in infos:
             if i._overflow is None:
                 for p in i.overflow_parts:
                     v = p.vec if isinstance(p, OverflowSlice) else p
                     if id(v) not in vecs:
-                        vecs[id(v)] = v.reshape(-1).to(torch.int64)
+                        flat = torch.stack(v) if isinstance(v, tuple) else v
+                        vecs[id(v)] = flat.reshape(-1).to(torch.int64)
         return vecs
 
     @staticmethod
@@ -124,10 +134,33 @@ class ExecInfo:
                 total = 0
                 for p in i.overflow_parts:
                     if isinstance(p, OverflowSlice):
-                        total += int(host[id(p.vec)][p.rows].sum())
+                        h = host[id(p.vec)]
+                        if isinstance(p.vec, tuple):
+                            h = h.reshape(len(p.vec), -1)
+                        total += int(h[..., p.rows].sum())
                     else:
                         total += int(host[id(p)].sum())
                 i._overflow = total
+
+
+def keep_recent_programs(programs, recent, generation, config) -> list:
+    """Drop the programs that read an engine, except those of its current
+    arena ``generation`` built for one of its last ``RECENT_CONFIGS``
+    configs; returns the new ``recent`` list of (generation, config).  A
+    program of an older generation reads freed buffers, so a new
+    generation drops every program with the graph memory pool they share;
+    an older config's programs hold their static inputs and outputs, which
+    an endless stream of geometries would otherwise pile up."""
+    now = (generation, config)
+    if recent and recent[-1][0] != generation:
+        programs.clear()
+        recent = []
+    recent = [c for c in recent if c != now]
+    recent = recent[-(RECENT_CONFIGS - 1):] + [now]
+    keep = set(recent)
+    programs.drop_where(
+        lambda key: key[0] == "engine" and key[1:3] not in keep)
+    return recent
 
 
 def _pow2_at_least(n: int, lo: int = 8, hi: int = 1024) -> int:
@@ -190,22 +223,9 @@ class Executor:
         self.max_cols = idx.max_cols
 
     def _keep_recent_programs(self):
-        """Drop the programs that read the engine, except those of the
-        current arena generation built for one of its last
-        ``RECENT_CONFIGS`` configs.  A program of an older generation reads
-        freed buffers, so a new generation drops every program with the
-        graph memory pool they share; an older config's programs hold
-        their static inputs and outputs, which an endless stream of
-        geometries would otherwise pile up."""
-        now = (self.arena.generation, self.engine.config)
-        if self._recent and self._recent[-1][0] != now[0]:
-            self.programs.clear()
-            self._recent = []
-        recent = [c for c in self._recent if c != now]
-        self._recent = recent[-(RECENT_CONFIGS - 1):] + [now]
-        keep = set(self._recent)
-        self.programs.drop_where(
-            lambda key: key[0] == "engine" and key[1:3] not in keep)
+        self._recent = keep_recent_programs(
+            self.programs, self._recent, self.arena.generation,
+            self.engine.config)
 
     def refresh(self):
         """Pick up index mutations: rebuild the engine iff the store epoch

@@ -52,16 +52,25 @@ package's jit sees) and the arena generation (``Executor.program_key``):
 on a live lake a mutation within a seen geometry reuses the program, whose
 replay reads the refilled arena (tests/test_torch_live.py,
 tests/test_torch_cuda.py).
+
+On a sharded lake (dist/shard.py) each seeker group is dispatched once per
+shard, with per-shard capacity windows from per-shard counts, each shard's
+program keyed on that shard's engine config and arena generation; the DAG
+program sums the per-shard score matrices in shard order (the cross-shard
+merge) and still counts as one launch per group.  A shard whose probe
+fails is retried once on a rebuilt shard, then dropped from the merge and
+named in ``ExecInfo.failed_shards``.
 """
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import faults, obs
 from repro_torch.core import combiners as comb
 from repro_torch.core import seekers as seek
 from repro_torch.core.executor import (ExecInfo, OverflowSlice, PAD_SENTINEL,
@@ -88,6 +97,10 @@ class _Task:
     qk_hi: np.ndarray | None = None
     nt: int = 0                      # MC: deduped tuple count
     m_cap: int = 0                   # this seeker's capacity-ladder rung
+    #: sharded lakes: per-shard capacity rungs from per-shard counts; a
+    #: shard probes only its own postings, so its window can be a lower
+    #: rung than the global one (exact as long as no shard overflows)
+    shard_caps: tuple = ()
     group_key: tuple = ()
     row: int = -1                    # row in the group's stacked output
     head: object = None              # canonical task for this spec: dupes
@@ -249,7 +262,16 @@ def _hash_tasks(ex, tasks):
     lens = np.array([len(r) for r in reqs], np.int64)
     offs = np.concatenate([[0], np.cumsum(lens)])
     all_h = np.concatenate(reqs) if offs[-1] else np.zeros(0, np.uint32)
-    counts = ex.index.host_counts(all_h)
+    n_shards = getattr(ex, "n_shards", 0)
+    if n_shards:
+        # per-shard counts in the same ONE batched lookup: global capacities
+        # (and the MC initiator-column pick) come from the summed counts,
+        # identical to a 1-shard run, while each shard's probe window sizes
+        # to its own counts (a shard only holds its own tables' postings)
+        per = ex.index.host_counts(all_h, per_shard=True)
+        counts = per.sum(axis=0)
+    else:
+        counts = ex.index.host_counts(all_h)
     for i, t in enumerate(tasks):
         c = counts[offs[i]:offs[i + 1]]
         if t.spec.kind == "MC":
@@ -260,6 +282,11 @@ def _hash_tasks(ex, tasks):
             t.m_cap = ex._quantize_cap(int(cm.max(initial=1)))
         else:
             t.m_cap = ex._quantize_cap(int(c.max(initial=1)))
+        if n_shards:
+            t.shard_caps = tuple(
+                ex._quantize_cap(int(per[s, offs[i]:offs[i + 1]]
+                                     .max(initial=1)))
+                for s in range(n_shards))
 
 
 # --------------------------------------------------------------------------
@@ -270,12 +297,29 @@ def _pow2(n: int, lo: int) -> int:
     return _pow2_at_least(max(n, 1), lo=lo, hi=1 << 30)
 
 
-def _launch_group(ex, key, tasks):
+def _launch_group(ex, key, tasks, failed=None):
     """Dispatch one seeker group as a single device program.  Returns
     (scores [n_seekers_p, n_tables], overflow [n_seekers_p]); the scores are
     the program's own buffer (read by this batch's DAG programs), the
     overflow a copy.  ``tasks`` are the deduped head tasks of the group
-    (run_fused collapses identical specs before hashing)."""
+    (run_fused collapses identical specs before hashing).
+
+    A sharded executor (``ex.shards``) dispatches the same batched program
+    once per shard (same query operands, per-shard capacity windows, each
+    shard's program built for its own engine and arena generation) and
+    returns *tuples* of per-shard (scores, overflow) on the merge device.
+    Each shard holds whole tables, so summing the per-shard matrices
+    (inside ``_run_dag``) is exact: every table slot is nonzero on exactly
+    one shard.  The whole per-shard fan-out is ONE logical launch
+    (``ExecInfo.launches``).
+
+    Graceful degradation: a shard probe that raises is retried once on a
+    freshly rebuilt shard (``ex.reset_shard``, which also drops the
+    shard's programs); a second failure drops the shard from this launch:
+    its (scores, overflow) are zero-substituted, which the exact merge
+    treats as "no tables here", and its index lands in ``failed`` so the
+    response is flagged degraded rather than silently partial.
+    ``InjectedCrash`` (a simulated kill) passes through."""
     for i, t in enumerate(tasks):
         t.row = i
     kind = key[0]
@@ -284,7 +328,7 @@ def _launch_group(ex, key, tasks):
     # nsp (and with it the DAG program's input shapes) onto a couple of
     # buckets, so reshuffled batches build no new program
     nsp = _pow2(len(tasks), lo=8)
-    m_cap = max([1] + [t.m_cap for t in tasks])
+    spans = []
     if kind == "MC":
         n_cols = key[1]
         width = _pow2(sum(t.nt for t in tasks), lo=8)
@@ -293,7 +337,6 @@ def _launch_group(ex, key, tasks):
         qlo = np.zeros(width, np.uint32)
         qhi = np.zeros(width, np.uint32)
         seg = np.zeros(width, np.int32)
-        caps = np.zeros(width, np.int32)
         tmask = np.zeros(width, bool)
         off = 0
         for i, t in enumerate(tasks):
@@ -303,20 +346,20 @@ def _launch_group(ex, key, tasks):
             qlo[off:off + n] = t.qk_lo
             qhi[off:off + n] = t.qk_hi
             seg[off:off + n] = i
-            caps[off:off + n] = t.m_cap
             tmask[off:off + n] = True
+            spans.append((off, n))
             off += n
-        host = (hash_keys(th), init, qlo.view(np.int32), qhi.view(np.int32),
-                seg, caps, tmask)
-        static = dict(m_cap=m_cap, n_seekers=nsp, n_tables=ex.n_tables,
-                      n_cols=n_cols, row_stride=ex.index.row_stride)
+        lead = (hash_keys(th), init, qlo.view(np.int32), qhi.view(np.int32),
+                seg)
+        trail = (tmask,)
+        static = dict(n_seekers=nsp, n_tables=ex.n_tables, n_cols=n_cols,
+                      row_stride=ex.index.row_stride)
         fn = seek.mc_seeker_seg
     else:
         width = _pow2(sum(len(t.h) for t in tasks), lo=16)
         qh = np.full(width, PAD_SENTINEL, np.uint32)
         qm = np.zeros(width, bool)
         seg = np.zeros(width, np.int32)
-        caps = np.zeros(width, np.int32)
         qb = np.zeros(width, np.int8)
         off = 0
         for i, t in enumerate(tasks):
@@ -324,62 +367,133 @@ def _launch_group(ex, key, tasks):
             qh[off:off + n] = t.h
             qm[off:off + n] = True
             seg[off:off + n] = i
-            caps[off:off + n] = t.m_cap
             if kind == "C":
                 qb[off:off + n] = t.qbit
+            spans.append((off, n))
             off += n
-        static = dict(m_cap=m_cap, n_seekers=nsp, n_tables=ex.n_tables)
-        host = (hash_keys(qh), qm, seg, caps)
+        static = dict(n_seekers=nsp, n_tables=ex.n_tables)
+        lead, trail = (hash_keys(qh), qm, seg), ()
         if kind == "SC":
             static["max_cols"] = ex.max_cols
             fn = seek.sc_seeker_seg
         elif kind == "KW":
             fn = seek.kw_seeker_seg
         else:
-            host = (hash_keys(qh), qm, qb, seg, caps)
+            lead = (hash_keys(qh), qm, qb, seg)
             static.update(row_cap=ex.row_cap, max_cols=ex.max_cols,
                           h_sample=key[1], sampling=key[2],
                           row_stride=ex.index.row_stride)
             fn = seek.c_seeker_seg
-    rec = otrace.current()
-    with rec.span("shard:0", m_cap=m_cap, seekers=len(tasks)):
-        t0 = time.perf_counter()
-        # keyed on the engine's config and arena generation: a program
-        # reads the engine's tensors, views of the arena that every refresh
-        # refills in place, so it is built (called) with the current engine
-        # and its replays read the current epoch
-        scores, ovf = ex.programs.run(
-            ex.program_key(kind, width, tuple(sorted(static.items()))),
-            kind + "_seg", lambda *ops: fn(ex.engine, *ops, **static), host)
-        ovf = ovf.clone()           # read lazily, after later replays
+
+    def capacities(shard):
+        """Per-row capacities (the global rungs, or shard ``shard``'s) and
+        the window's rung."""
+        caps = np.zeros(width, np.int32)
+        m_cap = 1
+        for (o, n), t in zip(spans, tasks):
+            c = t.m_cap if shard is None else t.shard_caps[shard]
+            caps[o:o + n] = c
+            m_cap = max(m_cap, c)
+        return caps, m_cap
+
+    def dispatch(target, caps, m_cap):
+        """Run the group's program on ``target`` (the executor, or one of
+        its shards): keyed on the engine's config and arena generation, so
+        a replay reads the current epoch of the arena it was built over."""
+        kw = dict(static, m_cap=m_cap)
+        scores, ovf = target.programs.run(
+            target.program_key(kind, width, tuple(sorted(kw.items()))),
+            kind + "_seg",
+            lambda *ops: fn(target.engine, *ops, **kw), lead + (caps,) + trail)
+        return scores, ovf.clone()           # read lazily, after replays
+
+    # an unsharded executor is its own single shard: global capacities, no
+    # fault point, no retry, and its outputs returned as they are
+    sharded = hasattr(ex, "shards")
+    targets = ex.shards if sharded else [ex]
+
+    def probe(s, caps, m_cap):
+        if sharded:
+            faults.checkpoint(f"shard.probe.{s}")
+        out = dispatch(targets[s], caps, m_cap)
         if obs.sync_timing():
             ex.synchronize()
-        obs.registry().histogram("shard.probe_seconds.0").observe(
-            time.perf_counter() - t0)
-    return scores, ovf
+        return out
+
+    rec = otrace.current()
+    mreg = obs.registry()
+    scores, ovfs, shard_s = [], [], []
+    for s in range(len(targets)):
+        caps, m_cap = capacities(s if sharded else None)
+        with rec.span(f"shard:{s}", m_cap=m_cap, seekers=len(tasks)), \
+                (ex.device_scope(s) if sharded else nullcontext()):
+            t0 = time.perf_counter()
+            try:
+                sc, ov = probe(s, caps, m_cap)
+            except Exception:                        # noqa: BLE001
+                if not sharded:
+                    raise
+                mreg.counter("shard.failures").inc()
+                try:
+                    ex.reset_shard(s)      # replaces targets[s] (ex.shards)
+                    sc, ov = probe(s, caps, m_cap)
+                    mreg.counter("shard.retries").inc()
+                except Exception:                    # noqa: BLE001
+                    # the rebuilt shard failed too: drop it from the
+                    # merge; zeros are exactly "no tables live here"
+                    mreg.counter("shard.dropped").inc()
+                    if failed is not None:
+                        failed.add(s)
+                    sc = torch.zeros((nsp, ex.n_tables), dtype=torch.float32,
+                                     device=ex.device)
+                    ov = torch.zeros(nsp, dtype=torch.int64,
+                                     device=ex.device)
+            dt = time.perf_counter() - t0
+        shard_s.append(dt)
+        mreg.histogram(f"shard.probe_seconds.{s}").observe(dt)
+        # onto the merge device, after the shard's replay in stream order
+        # (a copy between cards waits on both devices' current streams)
+        scores.append(sc.to(ex.device))
+        ovfs.append(ov.to(ex.device))
+    if not sharded:
+        return scores[0], ovfs[0]
+    # shard skew for this launch: slowest / mean probe time (1.0 = level);
+    # without synchronized timing it measures enqueue skew
+    mean_s = sum(shard_s) / len(shard_s)
+    if mean_s > 0:
+        mreg.gauge("shard.imbalance").set(max(shard_s) / mean_s)
+    return tuple(scores), tuple(ovfs)
 
 
 # --------------------------------------------------------------------------
 # the whole-DAG device program
 # --------------------------------------------------------------------------
 
-def _run_dag(prog, outs, n_groups, rows, *inputs):
+def _run_dag(prog, outs, n_groups, n_parts, rows, *inputs):
     """Execute one plan's compiled instruction list as one program.
-    ``inputs`` are the ``n_groups`` stacked seeker score matrices this plan
-    consumes, then each cached seeker's scores and mask; ``rows`` maps each
-    seeker ordinal to its batch row (an operand, so a reshuffled batch of
-    the same plan shapes reuses the program).  Every op is its
-    combiners.py counterpart, so outputs are bit-identical to the
-    node-at-a-time walk.  Returns (scores, mask) of each register in
+    ``inputs`` are the stacked seeker score matrices of the ``n_groups``
+    groups this plan consumes, ``n_parts`` per group (one per shard on a
+    sharded lake, in shard order), then each cached seeker's scores and
+    mask; ``rows`` maps each seeker ordinal to its batch row (an operand,
+    so a reshuffled batch of the same plan shapes reuses the program).
+    Every op is its combiners.py counterpart, so outputs are bit-identical
+    to the node-at-a-time walk.  Returns (scores, mask) of each register in
     ``outs``, flattened."""
     rows = rows.to(torch.int64)
-    group_scores, cached = inputs[:n_groups], inputs[n_groups:]
+    n_mats = n_groups * n_parts
+    group_scores, cached = inputs[:n_mats], inputs[n_mats:]
     regs = []
     for ins in prog:
         op = ins[0]
         if op == "seeker":
             _, gi, j, k, allowed = ins
-            s = torch.index_select(group_scores[gi], 0, rows[j:j + 1])[0]
+            # a sharded group: the per-shard rows summed in shard order,
+            # exact in f32 (each table slot is nonzero on exactly one
+            # shard); this is the whole cross-shard merge
+            parts = group_scores[gi * n_parts:(gi + 1) * n_parts]
+            s = torch.index_select(parts[0], 0, rows[j:j + 1])[0]
+            for m in parts[1:]:
+                s = s + torch.index_select(m, 0, rows[j:j + 1])[0]
             if allowed >= 0:
                 s = torch.where(regs[allowed].mask, s, 0.0)
             regs.append(comb.topk_result(s, k))
@@ -403,6 +517,11 @@ def _run_dag(prog, outs, n_groups, rows, *inputs):
 # --------------------------------------------------------------------------
 # driver
 # --------------------------------------------------------------------------
+
+def _parts(out) -> tuple:
+    """A group output's per-shard parts (one part off a sharded lake)."""
+    return out if isinstance(out, tuple) else (out,)
+
 
 def run_fused(ex, plans, optimize=True, cost_model=None, cache=None):
     """Execute ``plans`` (one or a whole ``run_many`` batch) on the fused
@@ -430,6 +549,8 @@ def run_fused(ex, plans, optimize=True, cost_model=None, cache=None):
         groups.setdefault(h.group_key, []).append(h)
     group_out: dict[tuple, tuple] = {}
     launch_seconds: dict[tuple, float] = {}
+    failed_shards: set = set()
+    n_parts = getattr(ex, "n_shards", 0) or 1
     rec = otrace.current()
     mreg = obs.registry()
     for key in sorted(groups):
@@ -439,7 +560,8 @@ def run_fused(ex, plans, optimize=True, cost_model=None, cache=None):
         tr0 = sum(seek.TRACE_COUNTS.values())
         t0 = time.perf_counter()
         with rec.span("probe:" + kind_name, seekers=len(groups[key])) as sp:
-            group_out[key] = _launch_group(ex, key, groups[key])
+            group_out[key] = _launch_group(ex, key, groups[key],
+                                           failed=failed_shards)
         dt = time.perf_counter() - t0
         launch_seconds[key] = dt
         if sum(seek.TRACE_COUNTS.values()) > tr0:
@@ -463,7 +585,7 @@ def run_fused(ex, plans, optimize=True, cost_model=None, cache=None):
             pr.instrs[t.instr_idx] = ("seeker", key_idx[t.group_key],
                                       ins[2], ins[3], ins[4])
         rows = np.array([t.row for t in pr.tasks], np.int32)
-        gs = tuple(group_out[k][0] for k in plan_keys)
+        gs = tuple(m for k in plan_keys for m in _parts(group_out[k][0]))
         cached = tuple(t for c in pr.cached
                        for t in (c.result.scores, c.result.mask))
         prog = tuple(pr.instrs)
@@ -472,9 +594,9 @@ def run_fused(ex, plans, optimize=True, cost_model=None, cache=None):
         t0 = time.perf_counter()
         with rec.span("merge", instrs=len(pr.instrs)) as sp:
             got = ex.programs.run(
-                ("DAG", prog, outs), "DAG",
-                lambda r, *g, _p=prog, _o=outs, _n=len(gs): _run_dag(
-                    _p, _o, _n, r, *g),
+                ("DAG", prog, outs, n_parts), "DAG",
+                lambda r, *g, _p=prog, _o=outs, _n=len(plan_keys): _run_dag(
+                    _p, _o, _n, n_parts, r, *g),
                 (rows,), gs + cached)
             # the program's buffers are rewritten by its next replay: the
             # result and every cached seeker are copies
@@ -498,6 +620,9 @@ def run_fused(ex, plans, optimize=True, cost_model=None, cache=None):
         info.order = pr.order
         info.cached_nodes = pr.cached_names
         info.seeker_runs = len(pr.tasks)
+        # every plan of the batch shares the group launches, so a dropped
+        # shard degrades every response formed from them
+        info.failed_shards = sorted(failed_shards)
         # one launch per seeker group + the DAG program; groups == kinds
         # unless same-kind seekers differ in static shape args (MC n_cols,
         # C h/sampling), each of which is its own device program

@@ -18,8 +18,9 @@ physical ``Plan`` objects are accepted everywhere an expression is.
 snapshot and ``recover`` replays snapshot + write-ahead log.
 ``connect(lake, cache=True)`` gives the session a semantic query cache
 (serve/cache.py); ``explain(server=)`` renders the batching server's
-stats (serve/server.py).  Sharding and the approximate tier raise
-``NotImplementedError`` naming their ROADMAP item.
+stats (serve/server.py).  ``connect(lake, shards=N)`` partitions the
+store along the table axis (dist/shard.py).  The approximate tier raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from repro_torch.core.executor import ExecInfo, Executor
 from repro_torch.core.index import build_index, resolve_device
 from repro_torch.core.optimizer import optimize as optimize_plan
 from repro_torch.core.plan import Plan
+from repro_torch.dist.shard import ShardedExecutor, ShardedStore
 from repro_torch.query import logical as L
 from repro_torch.query.fingerprint import object_nonce
 from repro_torch.query.lower import lower
@@ -41,7 +43,6 @@ from repro_torch.query.rules import prune_dead_nodes, rewrite
 from repro_torch.store.live import LiveLake
 
 _LATER = {
-    "shards": "sharding (ROADMAP queue A, item A6)",
     "approx": "the approximate tier (ROADMAP queue A, item A7)",
 }
 
@@ -130,9 +131,23 @@ class Explain:
         if self.index_shape:
             s = self.index_shape
             lines.append("== index ==")
-            lines.append(f"  mode: {s['mode']}   epoch: {s['epoch']}   "
-                         f"segments: {s['segments']}")
-            lines.append(f"  postings/segment: {s['postings_per_segment']}")
+            if s.get("shards"):
+                mesh = "x".join(str(d) for d in s["mesh_shape"])
+                lines.append(f"  mode: {s['mode']}   mesh: {mesh} "
+                             f"({s['shards']} shards)   "
+                             f"epoch: {s['epoch']}")
+                for p in s["per_shard"]:
+                    lines.append(f"  shard {p['shard']}: "
+                                 f"segments: {p['segments']}   "
+                                 f"postings: {p['postings']}   "
+                                 f"tables: {p['live_tables']}   "
+                                 f"tombstones: {p['tombstones']}   "
+                                 f"[{p['device']}]")
+            else:
+                lines.append(f"  mode: {s['mode']}   epoch: {s['epoch']}   "
+                             f"segments: {s['segments']}")
+                lines.append(
+                    f"  postings/segment: {s['postings_per_segment']}")
             lines.append(f"  live tables: {s['live_tables']}"
                          + (f"   tombstoned: {s['tombstoned']}"
                             if s["tombstoned"] else ""))
@@ -231,7 +246,8 @@ class Session:
         ``begin``)."""
         ex = self.executor
         return (ex.backend, str(ex.device), ex.m_cap_max, ex.row_cap,
-                ex.bucket_width, object_nonce(self.cost_model)
+                ex.bucket_width, getattr(ex, "n_shards", 0),
+                object_nonce(self.cost_model)
                 if self.cost_model is not None else 0)
 
     # ------------------------------------------------------------ mutations
@@ -527,15 +543,29 @@ def connect(lake, cost_model: CostModel | None = None, live: bool = False,
     semantic query cache (serve/cache.py): repeated or subtree-sharing
     queries are served from compiled-plan, exact-result and per-seeker
     caches, all invalidated by the store epoch so mutations never serve
-    stale ids."""
-    if shards:
-        _not_ported("shards")
+    stale ids.
+
+    ``shards=N`` partitions the store along the table axis (dist/shard.py),
+    shard i on ``cuda:(i % device_count)`` (every shard on the CPU with
+    ``device="cpu"``): queries execute as fused per-shard probes plus one
+    cross-shard merge, bit-identical to an unsharded session; combine with
+    ``live=True`` for shard-local mutations (``add_table`` routes to the
+    least-loaded shard)."""
     qc = _make_cache(cache)
     if wal is not None and not live:
         raise ValueError("wal= requires live=True (the WAL logs mutations)")
     # resolve the device before the (long) index build, so a missing card
     # fails fast
     executor_opts["device"] = resolve_device(executor_opts.get("device"))
+    if shards:
+        if isinstance(lake, LiveLake):
+            raise TypeError("pass the raw lake (not a LiveLake) with "
+                            "shards=: the store must be built sharded")
+        store = ShardedStore(lake, n_shards=shards)
+        executor = ShardedExecutor(store, **executor_opts)
+        ll = LiveLake(lake, store=store, wal=wal) if live else None
+        return Session(executor, lake=lake, cost_model=cost_model,
+                       live=ll, cache=qc)
     if live:
         if isinstance(lake, LiveLake):
             ll = lake
@@ -554,7 +584,9 @@ def connect(lake, cost_model: CostModel | None = None, live: bool = False,
 def restore(path, cost_model: CostModel | None = None, cache=False,
             **executor_opts) -> Session:
     """Open a live session from a snapshot (store/snapshot.py): no
-    re-indexing, the server restart path."""
+    re-indexing, the server restart path.  As in the JAX package, the
+    executor is a plain ``Executor`` even over a sharded snapshot: one
+    engine over every shard's segments."""
     executor_opts["device"] = resolve_device(executor_opts.get("device"))
     ll = LiveLake.restore(path)
     return Session(Executor(ll.store, **executor_opts),
@@ -570,8 +602,10 @@ def recover(path=None, *, wal=None, shards: int | None = None,
     snapshot's watermark (store/wal.py): the crash-recovery path.  The
     recovered session answers queries with ids, scores and epoch
     bit-identical to the uninterrupted run, and keeps logging to ``wal``.
-    ``shards=N`` only matters on a cold start with no snapshot."""
+    ``shards=N`` only matters on a cold start with no snapshot (a
+    recovered snapshot already knows its shard layout)."""
     executor_opts["device"] = resolve_device(executor_opts.get("device"))
     ll = LiveLake.recover(path, wal=wal, shards=shards, policy=policy)
-    return Session(Executor(ll.store, **executor_opts),
-                   cost_model=cost_model, live=ll, cache=_make_cache(cache))
+    cls = ShardedExecutor if hasattr(ll.store, "shards") else Executor
+    return Session(cls(ll.store, **executor_opts), cost_model=cost_model,
+                   live=ll, cache=_make_cache(cache))

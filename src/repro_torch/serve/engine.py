@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.executor import ExecInfo
 from repro_torch.obs import trace as otrace
-from repro_torch.query.session import _not_ported, connect
+from repro_torch.query.session import connect
 
 _NUMPY = {torch.float32: np.float32, torch.bool: np.bool_,
           torch.int64: np.int64}
@@ -86,6 +86,13 @@ class DiscoveryResponse:
     # probes, the DAG merge, drain, host transfer.  None unless the server
     # is tracing.
     trace: object = None
+    # graceful degradation (dist/shard.py + core/fused.py): shards whose
+    # probe failed twice (initial + one retry on a rebuilt shard) are
+    # excluded from the merge instead of failing the request; their tables
+    # are simply absent from the ranking.  ``degraded=True`` flags the
+    # partial result; ``failed_shards`` names the shard indices dropped.
+    degraded: bool = False
+    failed_shards: list = field(default_factory=list)
 
     @property
     def total_node_seconds(self) -> float:
@@ -107,19 +114,21 @@ class DiscoveryEngine:
     reports hit / partial / miss and the resident entries and bytes, and
     mutations invalidate by epoch so cached ids are never stale.
 
+    With ``shards=N`` the lake is partitioned along the table axis
+    (dist/shard.py): every request runs as fused per-shard probes plus one
+    cross-shard merge, bit-identical to the unsharded engine.
+
     ``device=None`` means CUDA and raises without a card; pass
-    ``device="cpu"`` for the plain PyTorch path.  ``shards=`` raises: it
-    comes with ROADMAP queue A, item A6."""
+    ``device="cpu"`` for the plain PyTorch path."""
 
     def __init__(self, lake, cost_model=None, backend: str = "sorted",
                  session=None, live: bool = False, cache=False,
                  shards: int | None = None, device=None):
-        if shards:
-            _not_ported("shards")
         if session is not None:
-            if backend != "sorted" or live or cache or device is not None:
-                raise ValueError("backend/live/cache/device are fixed by "
-                                 "the given session; pass them to "
+            if backend != "sorted" or live or cache or shards or \
+                    device is not None:
+                raise ValueError("backend/live/cache/shards/device are "
+                                 "fixed by the given session; pass them to "
                                  "connect() instead")
             if cost_model is not None:
                 session.cost_model = cost_model
@@ -127,7 +136,7 @@ class DiscoveryEngine:
         else:
             self.session = connect(lake, cost_model=cost_model,
                                    backend=backend, live=live, cache=cache,
-                                   device=device)
+                                   shards=shards, device=device)
         self.lake = lake
 
     # -------------------------------------------------- live-lake mutations
@@ -190,7 +199,9 @@ class DiscoveryEngine:
                                  applied_rules=list(res.applied_rules),
                                  cache=res.cache.as_dict()
                                  if res.cache is not None else None,
-                                 scores=scores_np)
+                                 scores=scores_np,
+                                 degraded=bool(res.info.failed_shards),
+                                 failed_shards=list(res.info.failed_shards))
 
     def serve(self, query, optimize: bool = True, fused: bool = False,
               approx=False) -> DiscoveryResponse:

@@ -50,12 +50,6 @@ def _unpack_table(d: dict) -> Table:
     return Table(d["name"], d["columns"], list(d["col_names"]))
 
 
-def _sharding_not_ported():
-    raise NotImplementedError(
-        "sharded live lakes are not ported to repro_torch yet: they come "
-        "with sharding (ROADMAP queue A, item A6)")
-
-
 class LiveLake:
     """Mutable lake handle: tables in, tables out, index stays resident.
 
@@ -101,20 +95,28 @@ class LiveLake:
             yield self
 
     def add_table(self, table, name: str | None = None, *,
-                  tid: int | None = None) -> int:
-        """Add one table (L0 delta).  ``tid`` pins the allocated id — used
-        by WAL replay so recovery reproduces the uninterrupted run's
-        placement exactly."""
+                  tid: int | None = None, shard: int | None = None) -> int:
+        """Add one table (L0 delta).  ``tid`` / ``shard`` pin the allocated
+        id and destination shard — used by WAL replay so recovery
+        reproduces the uninterrupted run's placement exactly."""
         with self._barrier, obs.registry().timer("store.add_table_seconds"):
             faults.checkpoint("store.add.pre")
-            tid = self.store.add_table(table, name=name, tid=tid)
+            sharded = hasattr(self.store, "shards")
+            if sharded:
+                tid = self.store.add_table(table, name=name, tid=tid,
+                                           shard=shard)
+            else:
+                tid = self.store.add_table(table, name=name, tid=tid)
             self.tables[tid] = table
             if self.auto_compact:
-                maybe_compact(self.store, self.policy)
+                if sharded:                         # sharded: per-shard tiers
+                    self.store.maybe_compact(self.policy)
+                else:
+                    maybe_compact(self.store, self.policy)
             self._note_shape()
             self._log("add_table", {
                 "table": _pack_table(table), "name": name, "tid": tid,
-                "shard": None})
+                "shard": self.store.owner_of(tid) if sharded else None})
             faults.checkpoint("store.add.post")
             return tid
 
@@ -147,11 +149,15 @@ class LiveLake:
         table-id mapping (and re-keys the Table registry)."""
         with self._barrier, obs.registry().timer("store.compact_seconds"):
             faults.checkpoint("store.compact.pre")
-            remap = compact_store(self.store, self.policy, full=full,
-                                  reclaim_ids=reclaim_ids)
-            if remap is not None:
-                self.tables = {remap[t]: tab for t, tab in
-                               self.tables.items() if t in remap}
+            if hasattr(self.store, "shards"):    # sharded: shard-local merges
+                remap = self.store.compact(self.policy, full=full,
+                                           reclaim_ids=reclaim_ids)
+            else:
+                remap = compact_store(self.store, self.policy, full=full,
+                                      reclaim_ids=reclaim_ids)
+                if remap is not None:
+                    self.tables = {remap[t]: tab for t, tab in
+                                   self.tables.items() if t in remap}
             self._note_shape()
             self._log("compact", {"full": bool(full),
                                   "reclaim_ids": bool(reclaim_ids)})
@@ -168,15 +174,15 @@ class LiveLake:
         run even though scores are layout-independent."""
         if self.wal is None:
             return
-        self.wal.append({"op": op, **payload, "epoch": self.store.epoch})
+        epoch = self.store.epoch
+        self.wal.append({"op": op, **payload, "epoch": list(epoch)
+                         if isinstance(epoch, tuple) else epoch})
 
     def _apply_record(self, rec: dict):
         op = rec.get("op")
         if op == "add_table":
-            if rec.get("shard") is not None:
-                _sharding_not_ported()
             self.add_table(_unpack_table(rec["table"]), name=rec.get("name"),
-                           tid=rec["tid"])
+                           tid=rec["tid"], shard=rec.get("shard"))
         elif op == "drop_table":
             self.drop_table(rec["tid"])
         elif op == "compact":
@@ -184,7 +190,14 @@ class LiveLake:
                          reclaim_ids=rec.get("reclaim_ids", False))
         else:
             raise WalReplayError(f"unknown WAL op {op!r}")
-        self.store.epoch = int(rec["epoch"])
+        self._force_epoch(rec["epoch"])
+
+    def _force_epoch(self, epoch):
+        if hasattr(self.store, "shards"):
+            for s, e in zip(self.store.shards, epoch):
+                s.epoch = int(e)
+        else:
+            self.store.epoch = int(epoch)
 
     @classmethod
     def recover(cls, path=None, *, wal=None,
@@ -199,7 +212,7 @@ class LiveLake:
         watermark stays comparable.  The recovered lake answers queries with
         ids, scores and epoch bit-identical to the uninterrupted run.
         ``shards`` only matters on a cold start, which builds a sharded
-        store (not ported yet)."""
+        store (a snapshot already knows its shard layout)."""
         reg = obs.registry()
         with reg.timer("store.recover_seconds"):
             store = None
@@ -212,7 +225,8 @@ class LiveLake:
                 else:
                     watermark = getattr(store, "recovered_wal_seq", 0)
             if store is None and shards:
-                _sharding_not_ported()
+                from repro_torch.dist.shard import ShardedStore
+                store = ShardedStore(None, n_shards=shards)
             lake = cls(None, policy=policy, auto_compact=auto_compact,
                        store=store)
             replayed = 0
@@ -238,12 +252,13 @@ class LiveLake:
             return
         s = self.store
         n_seg = len(s.segments)
+        n_shards = len(s.shards) if hasattr(s, "shards") else 1
         reg.gauge("store.segments").set(n_seg)
         reg.gauge("store.postings").set(s.n_postings)
         reg.gauge("store.tombstones").set(len(s.pending_dead))
         reg.gauge("store.live_tables").set(len(s.live_ids()))
         reg.gauge("store.compaction_debt").set(
-            max(0, n_seg - self.policy.max_segments))
+            max(0, n_seg - self.policy.max_segments * n_shards))
 
     # ----------------------------------------------------------- persistence
     def snapshot(self, path):

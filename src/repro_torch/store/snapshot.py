@@ -23,10 +23,10 @@ Durability hardening (format version 2):
 * **WAL watermark** — ``wal_seq`` records the write-ahead-log position the
   snapshot covers, so ``LiveLake.recover`` replays exactly the suffix
   (store/wal.py);
-* **sharded lakes** — the JAX package saves every shard's merged run into
-  the *same* npz under ``s{i}:`` key prefixes plus one coordinator
-  manifest; the port reads and writes them once sharding is ported
-  (ROADMAP A6), and until then raises ``NotImplementedError`` for them.
+* **sharded lakes** — a ``ShardedStore`` saves every shard's merged run
+  into the *same* npz under ``s{i}:`` key prefixes plus one coordinator
+  manifest (global geometry, per-shard epochs/names), keeping the
+  two-rename commit atomic for the whole store.
 
 Version-1 snapshots (no checksums, no ``wal_seq``, no pinned ``table_cap``)
 still load; unsupported versions raise ``CorruptSnapshot`` (a
@@ -128,11 +128,12 @@ def _commit(path, arrays: dict, manifest: dict, retain: int) -> Path:
 
 def save(store, path, *, wal_seq: int = 0,
          retain: int = RETAIN_GENERATIONS) -> Path:
-    """Write the compacted live index; returns the manifest path.  A
-    sharded coordinator (``.shards``) raises until sharding is ported."""
+    """Write the compacted live index; returns the manifest path.  Accepts
+    a single ``SegmentStore`` or a sharded coordinator (``.shards``)."""
     with obs.registry().timer("snapshot.save_seconds"):
         if hasattr(store, "shards"):
-            _sharding_not_ported()
+            return _save_sharded(store, path, wal_seq=wal_seq,
+                                 retain=retain)
         arrays = _store_arrays(store)
         manifest = {
             "format": SNAPSHOT_FORMAT,
@@ -156,10 +157,34 @@ def save(store, path, *, wal_seq: int = 0,
         return _commit(path, arrays, manifest, retain)
 
 
-def _sharding_not_ported():
-    raise NotImplementedError(
-        "sharded snapshots are not ported to repro_torch yet: they come "
-        "with sharding (ROADMAP queue A, item A6)")
+def _save_sharded(store, path, *, wal_seq: int, retain: int) -> Path:
+    arrays: dict = {}
+    per_shard: list = []
+    for i, s in enumerate(store.shards):
+        arrays.update(_store_arrays(s, prefix=f"s{i}:"))
+        per_shard.append({"epoch": s.epoch,
+                          "table_names": list(s.table_names)})
+    manifest = {
+        "format": SNAPSHOT_FORMAT,
+        "version": SNAPSHOT_VERSION,
+        "shards": store.n_shards,
+        "per_shard": per_shard,
+        "epoch": list(store.epoch),
+        "bucket_bits": store.bucket_bits,
+        "row_stride": store.row_stride,
+        "seed": store.shards[0].seed,
+        "with_quadrants": store.shards[0].with_quadrants,
+        "sketch": store.sketch_config.as_dict(),
+        "max_cols": max(s._max_cols_real for s in store.shards),
+        "table_cap": store.n_tables,
+        "wal_seq": int(wal_seq),
+        "lake_stats": {
+            "tables": int(store.alive.sum()),
+            "slots": store.n_slots,
+            "postings": int(store.n_postings),
+        },
+    }
+    return _commit(path, arrays, manifest, retain)
 
 
 def _read_arrays(npz_path: Path, manifest: dict, keys: list) -> dict:
@@ -243,14 +268,43 @@ def _load_one(path, g: int):
             f"snapshot version {manifest.get('version')} unsupported "
             f"(this build reads versions {SUPPORTED_VERSIONS})")
     if manifest.get("shards"):
-        _sharding_not_ported()
-    keys = list(POSTING_KEYS) + ["table_rows", "alive"]
-    data = _read_arrays(npz_path, manifest, keys)
-    parts = {k: data[k] for k in POSTING_KEYS}
-    store = _new_store(manifest, parts, data["table_rows"], data["alive"],
-                       manifest["table_names"], manifest["epoch"])
+        store = _load_sharded(npz_path, manifest)
+    else:
+        keys = list(POSTING_KEYS) + ["table_rows", "alive"]
+        data = _read_arrays(npz_path, manifest, keys)
+        parts = {k: data[k] for k in POSTING_KEYS}
+        store = _new_store(manifest, parts, data["table_rows"],
+                           data["alive"], manifest["table_names"],
+                           manifest["epoch"])
     #: the WAL watermark this snapshot covers (LiveLake.recover reads it)
     store.recovered_wal_seq = int(manifest.get("wal_seq", 0))
+    return store
+
+
+def _load_sharded(npz_path: Path, manifest: dict):
+    from repro_torch.dist.shard import ShardedStore
+    n = int(manifest["shards"])
+    keys = [f"s{i}:{k}" for i in range(n)
+            for k in list(POSTING_KEYS) + ["table_rows", "alive"]]
+    data = _read_arrays(npz_path, manifest, keys)
+    store = ShardedStore.__new__(ShardedStore)
+    store.n_shards = n
+    store.devices = None              # placed by the executor built over it
+    store.shards = []
+    for i, sec in enumerate(manifest["per_shard"]):
+        parts = {k: data[f"s{i}:{k}"] for k in POSTING_KEYS}
+        store.shards.append(_new_store(
+            manifest, parts, data[f"s{i}:table_rows"], data[f"s{i}:alive"],
+            sec["table_names"], sec["epoch"]))
+    # per-shard loaders mark every not-owned slot free; recompute globally
+    # (a slot is free only if no shard holds it live) and park the free
+    # list on shard 0: the coordinator's _alloc_gid scans all shards
+    n_slots = max((len(s.table_names) for s in store.shards), default=0)
+    alive_any = np.zeros(n_slots, bool)
+    for s in store.shards:
+        alive_any[:s.n_slots] |= s.alive[:s.n_slots]
+        s.free_ids = []
+    store.shards[0].free_ids = [t for t in range(n_slots) if not alive_any[t]]
     return store
 
 

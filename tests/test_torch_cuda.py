@@ -15,7 +15,13 @@ batching server's tests check that its dispatcher thread captures
 programs that record work and replays programs the main thread captured,
 with answers equal to sequential ``serve``; that it captures while
 another thread serves a second session on the card; and that mutation
-barriers give the answers of a sequential replay.
+barriers give the answers of a sequential replay.  The sharded lake's
+tests check that a 4-shard session (every shard on one card, or one per
+card with several) equals a 1-shard session and the CPU port, that a
+shard retried after a failure answers from a rebuilt engine and new
+programs, that a shard dropped after two failures gives a degraded
+response through the server's dispatcher, and that the per-shard group
+programs replayed before one DAG program are summed group by group.
 This file imports no JAX, so it runs on the H100 machine as it is:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
@@ -24,6 +30,7 @@ import pytest
 import torch
 
 import repro_torch as blend
+from repro_torch import faults
 from repro_torch.core import executor as executor_mod
 from repro_torch.core import fused
 from repro_torch.core import seekers as seek
@@ -33,6 +40,7 @@ from repro_torch.core.index import build_index, hash_keys
 from repro_torch.core.lake import Table, synthetic_lake
 from repro_torch.core.match import MatchEngine
 from repro_torch.core.plan import Combiners, Plan, Seekers
+from repro_torch.faults import FaultInjector
 from repro_torch.core.programs import Programs
 from repro_torch.kernels import _build
 from repro_torch.kernels.bucket_probe import ops as bucket_ops
@@ -999,3 +1007,202 @@ def test_server_live_barriers_on_card(fused_lake):
     for i, (step, want) in enumerate(zip(steps, replay)):
         for j, (g, w) in enumerate(zip(step, want)):
             _mapped_equal(g, w, tid, tid2, (i, j))
+
+
+# ------------------------------------------------------- the sharded lake
+
+def _same_result(got, want, ctx=""):
+    assert got.ids == want.ids, ctx
+    assert torch.equal(got.scores.cpu(), want.scores.cpu()), ctx
+
+
+def test_sharded_session_equals_one_shard_and_cpu_on_card(fused_lake):
+    """A 4-shard live session on the card (shard i on ``cuda:(i %
+    device_count)``) equals a 1-shard session on the card and the 4-shard
+    CPU port, through an add and a drop, with ``n_groups + 1`` launches and
+    no overflow; the second table of each step replays every program."""
+    lake, _ = fused_lake
+    n_dev = torch.cuda.device_count()
+    s4 = blend.connect(lake, shards=4, live=True, backend="bucket")
+    s1 = blend.connect(lake, shards=1, live=True, backend="bucket")
+    cpu = blend.connect(lake, shards=4, live=True, backend="sorted",
+                        device="cpu")
+    assert s4.executor.devices == [torch.device("cuda", i % n_dev)
+                                   for i in range(4)]
+    for step in ("connect", "add", "drop"):
+        if step == "add":
+            tids = {s.add_table(_guard_table("g0", "guardq"))
+                    for s in (s4, s1, cpu)}
+            assert len(tids) == 1
+        elif step == "drop":
+            for s in (s4, s1, cpu):
+                s.drop_table(5)
+        for tab in (2, 9):
+            plan = _fused_plan(lake, tab)
+            got, one, want = (s.query(plan) for s in (s4, s1, cpu))
+            _same_result(got, one, (step, tab, "1 shard"))
+            _same_result(got, want, (step, tab, "cpu"))
+            assert got.info.launches == one.info.launches == 5 + 1
+            assert got.info.overflow == 0 and got.info.failed_shards == []
+        q = blend.kw(["guardq_1", "guardq_2"], k=5)
+        _same_result(s4.query(q), cpu.query(q), step)
+    assert s4.live.store.epoch == cpu.live.store.epoch
+    assert all(len(sh.programs) for sh in s4.executor.shards)
+
+
+def test_sharded_retry_drops_the_failed_shards_programs_on_card(
+        fused_lake):
+    """Shard 1 fails once and is retried on a rebuilt engine; a mutation
+    within the same geometry then refills the rebuilt arena.  Warm queries
+    afterwards equal the CPU port, which holds only if shard 1's programs
+    captured over its old arena were dropped with it (the old arena is
+    kept alive here, so a stale program would read the unmutated lake)."""
+    lake, _ = fused_lake
+    s = blend.connect(lake, shards=4, live=True, backend="bucket")
+    cpu = blend.connect(lake, shards=4, live=True, backend="sorted",
+                        device="cpu")
+    plan = _fused_plan(lake, 2)
+    own = lake.tables[5]                     # table 5 lives on shard 1
+    q = blend.kw(list(own.columns[0][:6]), k=12)
+    clean = [s.query(x) for x in (plan, q)]
+    assert clean[1].ids[:1] == [5]
+    old = s.executor.shards[1]
+    with faults.inject(FaultInjector(fail={"shard.probe.1": 1})):
+        retried = s.query(plan)
+    _same_result(retried, clean[0], "retried")
+    assert retried.info.failed_shards == []
+    assert s.executor.shards[1] is not old
+    for x in (plan, q):                      # warm
+        _same_result(s.query(x), cpu.query(x), "warm")
+    for sess in (s, cpu):
+        sess.drop_table(5)
+    got = s.query(q)
+    assert 5 not in got.ids
+    _same_result(got, cpu.query(q), "after drop")
+    _same_result(s.query(plan), cpu.query(plan), "after drop")
+    del old
+
+
+def test_sharded_degraded_response_through_dispatcher_on_card(fused_lake):
+    """Shard 2 fails on every probe while the server's dispatcher thread
+    runs a batch: each response is flagged degraded with
+    ``failed_shards == [2]``, holds no table of shard 2, and every table it
+    holds that the clean answer holds keeps its clean score; afterwards
+    the same batch is clean again."""
+    from repro_torch.serve.server import DiscoveryServer
+    lake, _ = fused_lake
+    eng = DiscoveryEngine(lake, shards=4, live=True, backend="bucket")
+    batch = _server_batch(lake, 3)
+    clean = [eng.serve(q, fused=True) for q in batch]
+    store = eng.executor.index
+    srv = DiscoveryServer(eng, max_batch=len(batch),
+                          interactive_window_s=1.0)
+    try:
+        with faults.inject(FaultInjector(fail={"shard.probe.2": 10 ** 6})):
+            futs = [srv.submit(q) for q in batch]
+            got = [f.result(timeout=120) for f in futs]
+        after = [f.result(timeout=120) for f in
+                 [srv.submit(q) for q in batch]]
+    finally:
+        srv.stop()
+    assert max(r.batch_size for r in got) == len(batch)
+    for r, c in zip(got, clean):
+        assert not isinstance(r, BaseException), r
+        assert r.degraded is True and r.failed_shards == [2]
+        for tid in r.table_ids:
+            assert store.owner_of(tid) != 2
+            if tid in c.table_ids:
+                assert r.scores[tid] == c.scores[tid]
+    assert srv.stats()["degraded"] == len(batch)
+    for r, c in zip(after, clean):
+        assert r.degraded is False and r.failed_shards == []
+        _same_response(r, c)
+
+
+def test_two_shards_group_programs_summed_by_one_dag_on_card(fused_lake):
+    """Two shards on one card, a plan of two groups (SC, KW): each shard's
+    group programs replay into buffers of their own, outside every graph
+    pool, and the one DAG program sums them group by group, equal to the
+    1-shard session and the CPU port; a second table replays every
+    program (no capture) with the same outcome."""
+    lake, _ = fused_lake
+    s2 = blend.connect(lake, shards=2, backend="bucket")
+    s1 = blend.connect(lake, shards=1, backend="bucket")
+    cpu = blend.connect(lake, shards=2, backend="bucket", device="cpu")
+    ex = s2.executor
+
+    def query(tab):
+        t = lake.tables[tab]
+        return blend.sc(list(t.columns[0][:6]), k=12) | blend.kw(
+            [t.columns[1][0], t.columns[1][1]], k=12)
+
+    outs = []
+    launch = fused._launch_group
+
+    def keep(ex_, key, tasks, failed=None):
+        out = launch(ex_, key, tasks, failed)
+        if ex_ is ex:
+            outs.append(out[0])
+        return out
+
+    fused._launch_group = keep
+    try:
+        for tab in (2, 9):
+            before = dict(seek.TRACE_COUNTS)
+            outs.clear()
+            got = s2.query(query(tab))
+            torch.cuda.synchronize()
+            if tab == 9:
+                assert dict(seek.TRACE_COUNTS) == before
+            _same_result(got, s1.query(query(tab)), tab)
+            _same_result(got, cpu.query(query(tab)), tab)
+            assert got.info.launches == 3
+            assert len(outs) == 2 and all(len(o) == 2 for o in outs)
+            ptrs = {o.data_ptr() for pair in outs for o in pair}
+            assert len(ptrs) == 4
+    finally:
+        fused._launch_group = launch
+    pools = {}
+    for seg in torch.cuda.memory_snapshot():
+        pools[(seg["address"], seg["total_size"])] = \
+            tuple(seg["segment_pool_id"])
+    for ptr in ptrs:
+        (pool,) = [p for (a, n), p in pools.items() if a <= ptr < a + n]
+        assert pool == (0, 0)
+
+
+def test_shards_on_separate_cards_merge_like_one_card(fused_lake):
+    """One shard per card (shard i on ``cuda:i``): every shard's engine
+    and programs live on its own card, the merge runs on card 0, and the
+    answers equal one card's 1-shard session and the CPU port, through a
+    retried shard failure and an add."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    lake, _ = fused_lake
+    sn = blend.connect(lake, shards=n, live=True, backend="bucket")
+    s1 = blend.connect(lake, shards=1, live=True, backend="bucket")
+    cpu = blend.connect(lake, shards=n, live=True, backend="sorted",
+                        device="cpu")
+    ex = sn.executor
+    assert ex.devices == [torch.device("cuda", i) for i in range(n)]
+    assert ex.device == torch.device("cuda", 0)
+    for step in ("connect", "retry", "add"):
+        if step == "add":
+            for s in (sn, s1, cpu):
+                s.add_table(_guard_table("g0", "guardm"))
+        for tab in (2, 9):
+            plan = _fused_plan(lake, tab)
+            if step == "retry":
+                with faults.inject(FaultInjector(
+                        fail={f"shard.probe.{n - 1}": 1})):
+                    got = sn.query(plan)
+            else:
+                got = sn.query(plan)
+            assert got.scores.device == torch.device("cuda", 0)
+            _same_result(got, s1.query(plan), (step, tab))
+            _same_result(got, cpu.query(plan), (step, tab))
+            assert got.info.failed_shards == []
+    for i, sh in enumerate(ex.shards):
+        assert sh.engine.dev["hash"].device == torch.device("cuda", i)
+        assert sh.programs.device == torch.device("cuda", i)

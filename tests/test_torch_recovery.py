@@ -7,7 +7,16 @@ own ``FaultInjector``, crashing at every fault point the clean run crosses
 (the same names, the same hit counts as the JAX package's matrix), and
 ``repro_torch.recover`` must rebuild the exact acknowledged prefix — ids,
 scores and epoch equal to the JAX package's uninterrupted run at that
-prefix.  Torn WAL tails are truncated, never partially replayed.
+prefix.  Torn WAL tails are truncated, never partially replayed.  The
+same matrix runs on a 4-shard lake (the JAX package's ``shards4``
+configurations): sharded snapshots, WAL records that carry their shard,
+and the epoch tuple.
+
+tests/test_recovery.py's shard-failure cases run on the port with their
+module's names bound to the port's (every session and engine on the CPU,
+per backend): a shard probe that fails once is retried transparently; one
+that fails twice is dropped, with zero wrong results and the response
+flagged ``degraded``.
 
 The WAL-format and snapshot-hardening tests of tests/test_recovery.py run
 unchanged with their module names bound to the port's modules (as
@@ -23,7 +32,9 @@ import repro_torch as blend
 import test_recovery
 from repro import faults as ref_faults
 from repro_torch import errors, faults, obs
+from repro_torch.core import lake as port_lake
 from repro_torch.faults import FaultInjector, InjectedCrash
+from repro_torch.serve.engine import DiscoveryEngine
 from repro_torch.store import LiveLake
 from repro_torch.store import snapshot as snap
 from repro_torch.store import wal as walmod
@@ -42,10 +53,12 @@ def probe_query(api, lake, k=20):
 
 
 def capture(session, api):
-    """(ids, scores, epoch) through the fused path."""
+    """(ids, scores, epoch) through the fused path; a sharded lake's epoch
+    is its tuple of shard epochs."""
     res = session.query(probe_query(api, mk_lake()), fused=True)
-    return (tuple(res.ids), np.asarray(res.scores).copy(),
-            int(session.live.store.epoch))
+    ep = session.live.store.epoch
+    ep = tuple(int(e) for e in ep) if isinstance(ep, tuple) else int(ep)
+    return (tuple(res.ids), np.asarray(res.scores).copy(), ep)
 
 
 def assert_state_equal(got, want, msg):
@@ -69,12 +82,30 @@ def reference(tmp_path_factory):
     return states, matrix
 
 
-def run_script(tmp_path, backend, injector):
+@pytest.fixture(scope="module")
+def sharded_reference(tmp_path_factory):
+    """As ``reference``, on the JAX package's 4-shard live lake."""
+    session = ref_blend.connect(mk_lake(), live=True, shards=SHARDS)
+    states = [capture(session, ref_blend)]
+    for mut in MUTATIONS:
+        apply_step(session, mut)
+        states.append(capture(session, ref_blend))
+    matrix = test_recovery.crash_occurrences(
+        tmp_path_factory.mktemp("sharded_reference"), "sorted", SHARDS)
+    return states, matrix
+
+
+#: the JAX package's ``shards4`` configurations
+SHARDS = 4
+
+
+def run_script(tmp_path, backend, injector, shards=None):
     """Connect a port session with a WAL, take a baseline snapshot, then
     run STEPS under ``injector``.  Returns (acked, point, hit)."""
     tmp_path.mkdir(parents=True, exist_ok=True)
     session = blend.connect(mk_lake(), live=True, backend=backend,
-                            device="cpu", wal=str(tmp_path / "lake.wal"))
+                            device="cpu", wal=str(tmp_path / "lake.wal"),
+                            shards=shards)
     sp = str(tmp_path / "lake.snap")
     session.snapshot(sp)          # baseline: initial lake is durable
     acked = 0
@@ -135,6 +166,75 @@ def test_torn_wal_tail_truncated_never_partially_replayed(
                            f"torn append {n}")
         _, _, torn = walmod.scan(d / "lake.wal")
         assert not torn
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_sharded_crash_at_every_fault_point_recovers_reference_prefix(
+        tmp_path, sharded_reference, backend):
+    """The crash matrix on 4 shards: the same points and hits as the JAX
+    package's ``sorted-shards4`` matrix, each crash recovering the JAX
+    package's prefix state, epoch tuple included (``recover`` builds the
+    sharded store from the snapshot's manifest)."""
+    refs, ref_matrix = sharded_reference
+    rec = FaultInjector(record=True)
+    acked, point, _ = run_script(tmp_path / "record", backend, rec, SHARDS)
+    assert point is None and acked == len(MUTATIONS)
+    matrix = [(p, n) for p in rec.points for n in sorted({1, rec.hits[p]})]
+    assert matrix == ref_matrix
+    for i, (point, hit) in enumerate(matrix):
+        d = tmp_path / f"run{i}"
+        acked, cpoint, chit = run_script(
+            d, backend, FaultInjector(crash={point: hit}), SHARDS)
+        assert (cpoint, chit) == (point, hit)
+        want = refs[test_recovery.expected_prefix(point, hit, acked)]
+        got = recovered_state(d, backend)
+        assert isinstance(got[2], tuple) and len(got[2]) == SHARDS
+        assert_state_equal(got, want,
+                           f"crash at {point} hit {hit} (acked={acked})")
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_sharded_torn_wal_tail_truncated_never_partially_replayed(
+        tmp_path, sharded_reference, backend):
+    refs, _ = sharded_reference
+    for n in range(1, len(MUTATIONS) + 1):
+        d = tmp_path / f"torn{n}"
+        inj = FaultInjector(seed=n, torn={"wal.append.torn": n})
+        acked, point, _ = run_script(d, backend, inj, SHARDS)
+        assert point == "wal.append.torn" and acked == n - 1
+        assert_state_equal(recovered_state(d, backend), refs[acked],
+                           f"torn append {n}")
+        _, _, torn = walmod.scan(d / "lake.wal")
+        assert not torn
+
+
+def test_sharded_wal_records_carry_their_shard(tmp_path):
+    """Each ``add_table`` record names the shard it was routed to, and a
+    cold WAL-only ``recover(shards=)`` replays it there: placement and
+    epoch tuple equal the uninterrupted run's."""
+    wp = str(tmp_path / "s.wal")
+    session = blend.connect(mk_lake(), live=True, shards=SHARDS,
+                            device="cpu", wal=wp)
+    for i in range(3):
+        session.add_table(extra_table(i))
+    session.drop_table(2)
+    records, _ = walmod.recover_records(wp)
+    store = session.live.store
+    adds = [r for r in records if r["op"] == "add_table"]
+    assert [r["shard"] for r in adds] == [store.owner_of(r["tid"])
+                                          for r in adds]
+    assert all(isinstance(r["epoch"], list) for r in records)
+    empty = blend.connect(port_lake.DataLake([]), live=True, shards=SHARDS,
+                          device="cpu", wal=str(tmp_path / "e.wal"))
+    for i in range(3):
+        empty.add_table(extra_table(i))
+    empty.drop_table(1)
+    back = blend.recover(wal=str(tmp_path / "e.wal"), shards=SHARDS,
+                         device="cpu")
+    assert hasattr(back.live.store, "shards")
+    assert back.live.store.epoch == empty.live.store.epoch
+    assert [s.live_ids() for s in back.live.store.shards] == \
+        [s.live_ids() for s in empty.live.store.shards]
 
 
 def test_recovered_lake_keeps_logging(tmp_path):
@@ -214,3 +314,85 @@ def test_reference_recovery_contract_holds_for_port(tmp_path, name, arg):
     else:
         fn(tmp_path, arg)
     assert ref_faults.active() is None
+
+
+# --------------------------------- tests/test_recovery.py, shard failures
+
+#: tests/test_recovery.py's shard-failure cases
+SHARD_FAILURES = ("test_shard_failure_transparent_after_retry",
+                  "test_shard_failure_degrades_with_zero_wrong_results",
+                  "test_degraded_response_flagged_by_server")
+
+
+def _failure_names(backend: str) -> dict:
+    """tests/test_recovery.py's namespace with its lake, expression,
+    session, engine and fault names bound to the port's (on the CPU, on
+    ``backend``) and its helpers rebound to it."""
+
+    def connect(lake, **kw):
+        return blend.connect(lake, device="cpu", backend=backend, **kw)
+
+    class Engine(DiscoveryEngine):
+        def __init__(self, lake, **kw):
+            super().__init__(lake, device="cpu", backend=backend, **kw)
+
+    api = types.SimpleNamespace(**{n: getattr(blend, n)
+                                   for n in blend.__all__})
+    api.connect = connect
+    ns = {**vars(test_recovery), "blend": api, "DiscoveryEngine": Engine,
+          "faults": faults, "FaultInjector": FaultInjector,
+          "Table": port_lake.Table, "synthetic_lake": port_lake.synthetic_lake}
+    for name, fn in vars(test_recovery).items():
+        if isinstance(fn, types.FunctionType) and \
+                fn.__module__ == test_recovery.__name__:
+            ns[name] = types.FunctionType(fn.__code__, ns, name,
+                                          fn.__defaults__, fn.__closure__)
+    return ns
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("name", SHARD_FAILURES)
+def test_reference_shard_failure_contract_holds_for_port(name, backend):
+    reg = obs.enable()
+    try:
+        _failure_names(backend)[name]()
+        counters = reg.snapshot()["counters"]
+    finally:
+        obs.disable()
+    # one failure retried; two failures (the failing shard's probe and
+    # its retry) dropped once per query the contract runs degraded
+    assert counters["shard.failures"] >= 1
+    if name == "test_shard_failure_transparent_after_retry":
+        assert counters["shard.retries"] == 1
+        assert "shard.dropped" not in counters
+    else:
+        assert counters["shard.dropped"] == 1
+        assert "shard.retries" not in counters
+    assert ref_faults.active() is None and faults.active() is None
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_shard_failure_equals_reference_degraded_response(backend):
+    """The JAX package's and the port's 4-shard sessions, the same shard
+    failing twice: the same degraded ids and scores, ``failed_shards``
+    equal, and a clean query afterwards equal to the clean run (the
+    failed shard was rebuilt)."""
+    lake, ref_lake = port_lake.synthetic_lake(
+        n_tables=10, rows=12, cols=3, vocab=160, seed=2), mk_lake()
+    port = blend.connect(lake, live=True, shards=SHARDS, backend=backend,
+                         device="cpu")
+    ref = ref_blend.connect(ref_lake, live=True, shards=SHARDS)
+    q, rq = probe_query(blend, lake), probe_query(ref_blend, ref_lake)
+    clean = port.query(q, fused=True)
+    for point, hits in (("shard.probe.1", 2), ("shard.probe.3", 1)):
+        with faults.inject(FaultInjector(fail={point: hits})):
+            got = port.query(q, fused=True)
+        with ref_faults.inject(ref_faults.FaultInjector(fail={point: hits})):
+            want = ref.query(rq, fused=True)
+        assert got.info.failed_shards == want.info.failed_shards
+        assert got.ids == want.ids
+        np.testing.assert_array_equal(got.scores.numpy(),
+                                      np.asarray(want.scores))
+    again = port.query(q, fused=True)
+    assert again.ids == clean.ids and again.info.failed_shards == []
+    np.testing.assert_array_equal(again.scores.numpy(), clean.scores.numpy())

@@ -6,8 +6,8 @@ function, and every helper of its module, is rebound (``types.FunctionType``)
 to a namespace where the lake, expression, engine, server, client, load
 generator, error and observability names are the port's, with every engine
 on the CPU and on each port backend.  That covers tests/test_serving.py in
-its ``static`` and ``live`` modes (its ``sharded`` mode waits for sharding,
-ROADMAP queue A, item A6), the server, client and load-generator contracts
+its ``static``, ``live`` and ``sharded`` modes, the server, client and
+load-generator contracts
 of tests/test_recovery.py and the serving contracts of tests/test_obs.py.
 Two contracts import the JAX package inside the test and are restated on
 the port.  Beside them: the port's server answers equal the JAX package's
@@ -41,12 +41,15 @@ from repro_torch.serve.engine import DiscoveryEngine
 
 BACKENDS = ("sorted", "bucket")
 MODES = ("static", "live")
+#: the store modes of tests/test_serving.py, sharded included
+ALL_MODES = MODES + ("sharded",)
 
 #: tests/test_serving.py's contracts that run a server on each backend
 #: (their engines take the backend of the namespace)
 SERVING = (
     "test_concurrent_submitters_parity",
     "test_mutation_barrier_epoch_consistency",
+    "test_sharded_mutation_barrier_parity",
     "test_rate_limit_sheds_with_retry_after",
     "test_queue_full_sheds_and_bounds_depth",
     "test_response_telemetry_and_stats",
@@ -134,7 +137,7 @@ def _obs_off():
 # --------------------------------------------------- tests/test_serving.py
 
 @pytest.mark.parametrize("backend", BACKENDS)
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", ALL_MODES)
 def test_server_batched_matches_sequential_on_port(mode, backend):
     _port_module(ref_serving)["test_server_batched_matches_sequential"](
         mode, backend, False)
@@ -240,17 +243,20 @@ def _assert_same(got, want, ctx=""):
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", ALL_MODES)
 def test_port_server_equals_reference_server(mode, backend):
     """The same lake and traffic through the port's server and the JAX
-    package's (``sorted``): every answer equal, ids and scores, before and
-    (live) after an ``add_table`` barrier."""
+    package's (``sorted``): every answer equal, ids and scores (and on a
+    sharded lake ``degraded`` / ``failed_shards``), before and (live,
+    sharded) after an ``add_table`` barrier."""
     lake = ref_serving.serving_lake(seed=19)
     ns = _port_module(ref_serving, backend)
-    live = mode == "live"
-    port = server.DiscoveryServer(ns["DiscoveryEngine"](lake, live=live),
+    opts = {"static": {}, "live": {"live": True},
+            "sharded": {"live": True, "shards": 2}}[mode]
+    live = bool(opts)
+    port = server.DiscoveryServer(ns["DiscoveryEngine"](lake, **opts),
                                   max_batch=8, interactive_window_s=0.02)
-    ref = RefServer(RefEngine(lake, live=live), max_batch=8,
+    ref = RefServer(RefEngine(lake, **opts), max_batch=8,
                     interactive_window_s=0.02)
     pool, ref_pool = ns["pool4"](lake), ref_serving.pool4(lake)
     try:
@@ -263,8 +269,10 @@ def test_port_server_equals_reference_server(mode, backend):
             got += [port.submit(q, lane=batching.BATCH) for q in pool]
             want += [ref.submit(q) for q in ref_pool]
         for i, (g, w) in enumerate(zip(got, want)):
-            _assert_same(g.result(timeout=120), w.result(timeout=120),
-                         (mode, backend, i))
+            g, w = g.result(timeout=120), w.result(timeout=120)
+            _assert_same(g, w, (mode, backend, i))
+            assert (g.degraded, g.failed_shards) == \
+                (w.degraded, w.failed_shards) == (False, [])
     finally:
         port.stop()
         ref.stop()

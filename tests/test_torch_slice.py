@@ -185,26 +185,19 @@ def test_session_query_sql_explain_match_reference(sessions, backend):
         (ref_ex.ids, ref_ex.launches, ref_ex.overflow)
 
 
-def test_later_slices_raise_not_implemented(sessions, tmp_path):
+def test_later_slices_raise_not_implemented(sessions):
     lake, _, ports = sessions
     port = ports["sorted"]
     expr = blend.kw(["tok_1"])
-    for opts, item in (({"shards": 2}, "A6"),
-                       ({"live": True, "shards": 2}, "A6"),
-                       ({"cache": True, "shards": 2}, "A6")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            blend.connect(lake, device="cpu", **opts)
     from repro_torch.serve.engine import DiscoveryEngine
-    from repro_torch.store import LiveLake
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A6"):
-        LiveLake.recover(str(tmp_path / "no.snap"), shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A6"):
-        DiscoveryEngine(lake, shards=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
         port.query(expr, approx=True)
     engine = DiscoveryEngine(lake, session=port)
     with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
         engine.serve(expr, approx={"epsilon": 0.0})
+    sharded = blend.connect(lake, shards=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
+        sharded.query(expr, approx=True)
 
 
 # ------------------------------------ the static-index members of the surface
@@ -304,6 +297,9 @@ lake = synthetic_lake(n_tables=10, rows=8, seed=0)
 s = blend.connect(lake, backend="bucket", device="cpu")
 res = s.query(blend.sc(lake.tables[0].columns[0]) | blend.kw(["tok_3"]))
 assert res.ids
+sharded = blend.connect(lake, shards=2, live=True, device="cpu")
+got = sharded.query(blend.sc(lake.tables[0].columns[0]) | blend.kw(["tok_3"]))
+assert got.ids == res.ids
 from repro_torch.serve.engine import DiscoveryEngine
 eng = DiscoveryEngine(lake, cache=True, backend="bucket", device="cpu")
 got = eng.serve_many([blend.kw(["tok_3"]), blend.kw(["tok_3"])])
