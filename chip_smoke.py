@@ -161,6 +161,33 @@ Phases (each prints JSON lines):
    and read at its end; the launches of the witness and of phase 3's
    session (its windows) are taken back off them.
 
+9. approx (its static part run after 3b on phase 3's session; its cached,
+   sharded and live parts inside phases 6, 8 and 5 on the sessions those
+   hold, so it builds no index of its own): ``query(approx=...)`` at
+   epsilon 0, the default (0.05 at 0.95) and (0.1, 0.99).  Static: the
+   sketch views' build seconds, the KMVs' saturated shares, and for every
+   query at each setting REPEATS warm runs (p50 beside phases 3 and 3b,
+   kernel launches, ``ExecInfo.launches``, escalated and candidate
+   tables, fallback); ``sc``, ``kw`` and ``corr`` probe on the host, each
+   probe field and the escalation set equal to a CPU executor's, the
+   answer the CPU's top-k of the same estimates (then no query kernel and
+   one launch) or phase 3's exact answer where tables escalated; ``mc``
+   falls back (``mc-no-estimator``), the multi-node plans too
+   (``multi-node-plan``); at epsilon 0 every answer, unfused and fused,
+   equals phase 3's; one ``serve(q, approx=True)`` per kind reports the
+   CPU probe's ``approx``.  Cached (phase 6's session): each kind misses,
+   then hits with the same ``ApproxInfo``, no kernel, program or device
+   record; an exact request is its own entry.  Sharded (phase 8's 4-shard
+   session, before its mutations): each kind's probe equals the static
+   one on table ids ``[0, 20000)`` bit for bit and is zero beyond, and the
+   answers at epsilon 0 and 0.05 equal phase 3's and the static
+   approximate ones.  Live (phase 5's recovered session, after phase 7):
+   the guard added, dropped and added again, after each epsilon 0 equal
+   to the exact answer, the views rebuilt once.  Every kernel input of the
+   approximate runs is held to the plain versions; the ``kernels`` line
+   gains ``approx_launches`` and ``approx_shapes_checked``.  Phase 1's
+   ``index`` line gives the static build's sketch seconds.
+
 Any phase that captures an empty CUDA graph fails: that warning is an
 error here.  A ``replaced_kernels`` line quotes, as constants not measured in the run,
 the device times of the superkey kernels this version replaced
@@ -190,7 +217,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import repro_torch as blend  # noqa: E402  (fails outside a checkout)
 from repro_torch import faults, obs  # noqa: E402
+from repro_torch.core import combiners as comb  # noqa: E402
+from repro_torch.core import index as index_mod  # noqa: E402
 from repro_torch.core import seekers as seek  # noqa: E402
+from repro_torch.core import sketch  # noqa: E402
 from repro_torch.core.executor import Executor  # noqa: E402
 from repro_torch.core.lake import DataLake, synthetic_lake  # noqa: E402
 from repro_torch.dist.shard import ShardedExecutor  # noqa: E402
@@ -1216,6 +1246,7 @@ def run_live_path(lake, queries, static_results, static_connect_s) -> tuple:
         serve_launches, guard_tid = serve_live_cache(back, queries, guard,
                                                      tid["c"])
         server = server_live(back, queries, guard, guard_tid)
+        approx_live(back, queries, guard)
     del back, got, unfused, kept
     shutil.rmtree(tmp, ignore_errors=True)
     if bad or recovered_epoch != epoch:
@@ -1440,6 +1471,7 @@ def serve_cache(lake, session, queries, unfused) -> dict:
         bad.append(f"aliasing guard {alias}")
     if bad:
         raise AssertionError(f"the cached session differs: {bad}")
+    approx_cached(cached, queries)
     del cached, engine, cold, hits
     gc.collect()
     return line
@@ -2402,11 +2434,14 @@ def sharded_serving(back, queries, clean) -> dict:
     return line
 
 
-def run_sharded_path(lake, queries, static_session, fused_ref) -> tuple:
-    """Phase 8 (module docstring) on the smoke lake.  ``static_session``
-    and ``fused_ref`` are phase 3's session and (results, 3b's p50, 3b's
-    launches).  Returns (each kernel's launches in the phase, the number
-    of distinct inputs of each checked against its plain version)."""
+def run_sharded_path(lake, queries, static_session, fused_ref,
+                     static_approx) -> tuple:
+    """Phase 8 (module docstring) on the smoke lake, and phase 9's
+    sharded part.  ``static_session`` and ``fused_ref`` are phase 3's
+    session and (results, 3b's p50, 3b's launches), ``static_approx`` phase
+    9's static probes and answers.  Returns (each kernel's launches in the
+    phase, the number of distinct inputs of each checked against its plain
+    version)."""
     t_phase = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix="blend-shard-"))
     torch.cuda.synchronize()
@@ -2417,6 +2452,7 @@ def run_sharded_path(lake, queries, static_session, fused_ref) -> tuple:
                             wal=str(tmp / "lake.wal"))
     connect_s = time.perf_counter() - t0
     line = sharded_static(session, queries, static_session, fused_ref)
+    approx_sharded(session, queries, fused_ref[0], static_approx)
     shapes = check_path_kernels(session, queries, "shard_kernels",
                                 record_sharded(session.live.store, queries))
     guard = live_tables(1, 2, "live_guard_")[0]
@@ -2445,6 +2481,438 @@ def run_sharded_path(lake, queries, static_session, fused_ref) -> tuple:
     if idle:
         raise AssertionError(f"the sharded path never launched {idle}")
     return launches, shapes
+
+
+# ---------------------------------------------------------- phase 9: approx
+
+#: phase 9's ``approx=`` settings: the exact ids, the default contract
+#: (epsilon 0.05 at 0.95), a looser one
+APPROX_SETTINGS = {"eps0": {"epsilon": 0.0}, "default": True,
+                   "eps0.1": {"epsilon": 0.1, "confidence": 0.99}}
+#: the smoke queries the sketch tier estimates; the others run exact
+APPROX_KINDS = ("sc", "kw", "corr")
+#: what the others report as ``approx.fallback``
+APPROX_FALLBACK = {"mc": "mc-no-estimator"}
+PROBE_FIELDS = ("est", "bound_lo", "bound_hi", "ci_lo", "ci_hi",
+                "impossible")
+#: phase 9's own launches (over its four parts) and distinct kernel inputs
+#: held to the plain versions
+approx_launches = dict.fromkeys(KERNELS, 0)
+approx_shapes = dict.fromkeys(KERNELS, 0)
+
+
+@contextmanager
+def approx_counted():
+    """Launches made inside are phase 9's: added to ``approx_launches`` and
+    taken back off the counters of the phase that runs it."""
+    counts = kernel_launches()
+    try:
+        yield
+    finally:
+        now = kernel_launches()
+        for (mod, attr, *_rest), (name, n) in zip(KERNELS.values(),
+                                                  counts.items()):
+            approx_launches[name] += now[name] - n
+            getattr(mod, attr).launches = n
+
+
+@contextmanager
+def timed_sketches(record):
+    """``build_index``'s sketch build, timed into ``record["seconds"]``."""
+    original = index_mod.sketch_tables
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return original(*args, **kwargs)
+        finally:
+            record["seconds"] = record.get("seconds", 0.0) + \
+                time.perf_counter() - t0
+
+    index_mod.sketch_tables = timed
+    try:
+        yield record
+    finally:
+        index_mod.sketch_tables = original
+
+
+def seeker_spec(session, q):
+    compiled = session.compile(q)
+    return compiled.plan.nodes[compiled.plan.output].spec
+
+
+def same_probe(got, want, n=None) -> bool:
+    """Two probes agree field for field, bit for bit; with ``n``, ``got``
+    (a store's probe, with slot headroom) equals ``want`` on ``[0, n)``
+    and beyond it is zero (``impossible``: True, no table there joins)."""
+    for f in PROBE_FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        if (a is None) != (b is None):
+            return False
+        if a is None:
+            continue
+        if n is not None:
+            a, rest = a[:n], a[n:]
+            if (not rest.all()) if f == "impossible" else rest.any():
+                return False
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            return False
+    return True
+
+
+def approx_fields(info) -> dict:
+    return {"escalated": info.escalated, "candidates": info.candidates,
+            "threshold": info.threshold, "fallback": info.fallback}
+
+
+def sketch_saturation(index) -> dict:
+    """Shares of the index's column and table KMVs that hold K values
+    (their tables have more distinct values than the sketch keeps)."""
+    k = index.sketch_config.k
+    cols = [s.kmv_m for s in index.sketches.values()]
+    n_cols = sum(len(c) for c in cols)
+    return {"k": k, "tables": len(index.sketches), "columns": n_cols,
+            "saturated_column_share": sum(int((c == k).sum())
+                                          for c in cols) / max(n_cols, 1),
+            "saturated_table_share": sum(
+                s.tbl_m == k for s in index.sketches.values())
+            / max(len(index.sketches), 1),
+            "sketch_bytes": sum(s.nbytes()
+                                for s in index.sketches.values())}
+
+
+@contextmanager
+def view_builds(reuse=()):
+    """Counts the ``sketch.build_view`` calls made inside into the yielded
+    list; with ``reuse`` (the views an executor already holds, from its
+    ``sketch_views()``), the i-th build returns ``reuse[i]`` instead: an
+    executor on the same store at the same epoch needs no views of its
+    own."""
+    original = sketch.build_view
+    built = []
+
+    def build(sketches, n_tables, max_cols, config, alive=None):
+        i = len(built)
+        built.append(n_tables)
+        if i < len(reuse):
+            if len(reuse[i].tbl_tau_sorted) != n_tables:
+                raise AssertionError("reused sketch view of another store")
+            return reuse[i]
+        return original(sketches, n_tables, max_cols, config, alive=alive)
+
+    sketch.build_view = build
+    try:
+        yield built
+    finally:
+        sketch.build_view = original
+
+
+def record_approx(make_session, source, queries, settings):
+    """Phase 9's kernel inputs: every query at each of ``settings``,
+    unfused and fused, on a throwaway session (``make_session()``) that
+    reuses ``source``'s sketch views."""
+    def drive():
+        session = make_session()
+        with view_builds(source.sketch_views()):
+            for q in queries.values():
+                for approx in settings:
+                    for fused in (False, True):
+                        session.query(q, approx=approx, fused=fused)
+        torch.cuda.synchronize()
+    return drive
+
+
+def approx_static(session, queries, unfused, fused_p50) -> dict:
+    """Phase 9, static part, on phase 3's session: at each of
+    ``APPROX_SETTINGS``, every query REPEATS times warm (p50 beside phases 3
+    and 3b, kernel launches, ``ExecInfo.launches``); the sketch kinds'
+    probes and escalation sets equal a CPU executor's, their answers the
+    CPU's top-k of the same estimates or phase 3's exact answer where they
+    escalated; the others run exact with their fallback named; at epsilon
+    0, unfused and fused, every answer equals phase 3's; one ``serve`` per
+    kind reports the CPU probe's ``approx``.  Returns the default
+    setting's probes and answers (the sharded part's reference)."""
+    results, _, p50_unfused = unfused
+    ex = session.executor
+    t0 = time.perf_counter()
+    ex.sketch_views()
+    view_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = Executor(session.index, backend="bucket", device="cpu")
+    cpu_build_s = time.perf_counter() - t0
+    cpu.sketch_views()
+    bad, per, probes, kept = [], {}, {}, {}
+    for label, q in queries.items():
+        kind = label if label in APPROX_KINDS else None
+        spec = seeker_spec(session, q) if kind else None
+        per[label] = {}
+        for name, approx in APPROX_SETTINGS.items():
+            params = sketch.ApproxParams.of(approx)
+            row = {}
+            if kind:
+                t0 = time.perf_counter()
+                probe = ex.sketch_probe(spec, params.confidence)
+                row["probe_ms"] = (time.perf_counter() - t0) * 1e3
+                want = cpu.sketch_probe(spec, params.confidence)
+                esc = sketch.escalation_set(probe, spec.k, params)
+                want_esc = sketch.escalation_set(want, spec.k, params)
+                if not same_probe(probe, want) or \
+                        not np.array_equal(esc[0], want_esc[0]) or \
+                        esc[1:] != want_esc[1:]:
+                    bad.append(f"{label} {name}: probe differs from the CPU")
+                if name == "default":
+                    probes[label] = probe
+            times = []
+            with approx_counted():
+                before = kernel_launches()
+                res = session.query(q, approx=approx)
+                torch.cuda.synchronize()
+                row["kernel_launches"] = {
+                    k: v - before[k] for k, v in kernel_launches().items()}
+                for _ in range(REPEATS):
+                    t0 = time.perf_counter()
+                    session.query(q, approx=approx)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+            info = res.approx
+            row.update(p50_ms=statistics.median(times),
+                       exec_launches=res.info.launches, **approx_fields(info))
+            if kind and info.fallback is None and not info.escalated:
+                top = comb.topk_result(torch.as_tensor(want.est), spec.k)
+                ok = res.ids == [int(t) for t in top.ids()] and \
+                    torch.equal(res.scores.cpu(), top.scores)
+                if any(row["kernel_launches"].values()) or \
+                        res.info.launches != 1:
+                    bad.append(f"{label} {name}: the estimates' top-k "
+                               f"launched {row['kernel_launches']}")
+            else:
+                ok = same_result(res, results[label]) and \
+                    info.fallback == (None if kind else APPROX_FALLBACK.get(
+                        label, "multi-node-plan"))
+            if not ok:
+                bad.append(f"{label} {name}")
+            if name == "default":
+                kept[label] = res
+                # the card's share of one run: the host probe dominates
+                with approx_counted():
+                    wall, device = profiled(
+                        lambda: session.query(q, approx=approx), 1)
+                row.update(profiled_wall_ms=wall,
+                           device_ms=sum(device.values()))
+            per[label][name] = row
+        per[label]["phase3_p50_ms"] = p50_unfused[label]
+        per[label]["phase3b_p50_ms"] = fused_p50[label]["fused"]
+    # epsilon 0 gives the exact answer, unfused and fused
+    with approx_counted():
+        for label, q in queries.items():
+            for fused in (False, True):
+                res = session.query(q, approx=APPROX_SETTINGS["eps0"],
+                                    fused=fused)
+                if not same_result(res, results[label]):
+                    bad.append(f"{label} eps0 fused={fused}")
+    # one served request per kind: its report is the CPU probe's
+    engine = DiscoveryEngine(None, session=session)
+    served = {}
+    with approx_counted():
+        for label in APPROX_KINDS + tuple(APPROX_FALLBACK):
+            resp = engine.serve(queries[label], approx=True)
+            params = sketch.ApproxParams.of(True)
+            if label in APPROX_KINDS:
+                spec = seeker_spec(session, queries[label])
+                probe = cpu.sketch_probe(spec, params.confidence)
+                esc, cand, thresh = sketch.escalation_set(probe, spec.k,
+                                                          params)
+                want = sketch.ApproxInfo(
+                    params=params, kind=spec.kind,
+                    estimator=probe.estimator, escalated=len(esc),
+                    candidates=cand, threshold=thresh, est=probe.est,
+                    ci_lo=probe.ci_lo, ci_hi=probe.ci_hi,
+                    escalated_ids=[int(t) for t in esc])
+            else:
+                want = sketch.ApproxInfo(
+                    params=params, kind="MC", estimator="exact-fallback",
+                    escalated=0, candidates=0, threshold=0.0,
+                    fallback=APPROX_FALLBACK[label])
+            got = {k: v for k, v in resp.approx.items()
+                   if k != "probe_seconds"}
+            expected = {k: v for k, v in want.as_dict(
+                ids=resp.table_ids).items() if k != "probe_seconds"}
+            served[label] = {"equal": got == expected,
+                             "estimates": len(got.get("estimates", {}))}
+            if got != expected:
+                bad.append(f"serve {label}")
+    del cpu
+    gc.collect()
+    line = {"phase": "approx", "view_build_s": view_s,
+            "cpu_executor_build_s": cpu_build_s,
+            "saturation": sketch_saturation(session.index),
+            "queries": per, "serve": served, "repeats": REPEATS}
+    emit(line)
+    if bad:
+        raise AssertionError(f"the approximate tier differs: {bad}")
+    return {"probes": probes, "results": kept}
+
+
+def approx_cached(cached, queries) -> dict:
+    """Phase 9, cached part, on phase 6's cached session: an approximate
+    request of each kind misses, then hits with the same ``ApproxInfo``;
+    the hit pass launches no kernel, builds no program and records no
+    device activity; an exact request of the same query is its own entry
+    (``approx`` None)."""
+    labels = APPROX_KINDS + tuple(APPROX_FALLBACK)
+    cached.cache.clear()
+    bad, statuses = [], {}
+    with approx_counted():
+        first = {label: cached.query(queries[label], approx=True)
+                 for label in labels}
+        for res in first.values():
+            res.ids
+        before = (kernel_launches(), sum(seek.TRACE_COUNTS.values()))
+        hits = {label: cached.query(queries[label], approx=True)
+                for label in labels}
+        launched = {k: v - before[0][k] for k, v in kernel_launches().items()}
+        built = sum(seek.TRACE_COUNTS.values()) - before[1]
+        _, events, _, _ = device_events(
+            lambda: [cached.query(queries[label], approx=True).ids
+                     for label in labels], 1)
+    with uncounted():
+        exact = {label: cached.query(queries[label]) for label in labels}
+    for label in labels:
+        a, h, e = first[label], hits[label], exact[label]
+        statuses[label] = [a.cache.status, h.cache.status, e.cache.status]
+        if a.cache.status != "miss" or h.cache.status != "hit" or \
+                h.approx is not a.approx or not same_result(h, a) or \
+                e.approx is not None:
+            bad.append(label)
+    line = {"phase": "approx_cache", "statuses": statuses,
+            "hit_kernel_launches": launched, "hit_programs_built": built,
+            "hit_device_events": sum(n for n, _ in events.values())}
+    emit(line)
+    if any(launched.values()) or built or line["hit_device_events"]:
+        bad.append("an approximate hit touched the device")
+    if bad:
+        raise AssertionError(f"the cached approximate tier differs: {bad}")
+    return line
+
+
+def approx_live(back, queries, guard) -> dict:
+    """Phase 9, live part, on phase 5's recovered cached session after
+    phase 7's live server, which left the guard dropped: the guard added,
+    dropped and added again; after each, ``approx={"epsilon": 0.0}`` of the
+    sketch kinds and the guard queries equals the exact answer, ids and
+    scores (the guard first only while live), and the sketch views are
+    rebuilt exactly once."""
+    ex = back.executor
+    labels = APPROX_KINDS + ("guard sc", "guard kw")
+    approx = APPROX_SETTINGS["eps0"]
+    steps, bad, tid = [], [], {}
+    for step, live, mutate in (
+            ("add_table", True, lambda: back.add_table(
+                guard, name="live_guard_approx")),
+            ("drop_table", False, lambda: back.drop_table(tid["add_table"])),
+            ("add_table_again", True, lambda: back.add_table(
+                guard, name="live_guard_approx_again"))):
+        t0 = time.perf_counter()
+        out = mutate()
+        mutate_ms = (time.perf_counter() - t0) * 1e3
+        tid[step] = out if live else tid["add_table"]
+        t0 = time.perf_counter()
+        with approx_counted(), view_builds() as built:
+            got = {label: back.query(queries[label], approx=approx)
+                   for label in labels}
+            torch.cuda.synchronize()
+        pass_ms = (time.perf_counter() - t0) * 1e3
+        with uncounted():
+            want = {label: back.query(queries[label]) for label in labels}
+        bad += [f"{step} {label}" for label in labels
+                if not same_result(got[label], want[label])]
+        check_guard(got, tid[step], live, f"approx {step}")
+        rebuilt = len(built)           # the live store has one view
+        if rebuilt != 1:
+            bad.append(f"{step}: views rebuilt {rebuilt} times")
+        steps.append({"step": step, "mutate_ms": mutate_ms,
+                      "first_pass_ms": pass_ms, "views_rebuilt": rebuilt,
+                      "escalated": {label: got[label].approx.escalated
+                                    for label in labels}})
+    line = {"phase": "approx_live", "steps": steps,
+            "epoch": back.live.epoch}
+    emit(line)
+    if bad:
+        raise AssertionError(f"the live approximate tier differs: {bad}")
+    approx_shapes_add(check_path_kernels(
+        back, queries, "approx_live_kernels", record_approx(
+            lambda: blend.Session(Executor(back.live.store,
+                                           backend="bucket")),
+            ex, {label: queries[label] for label in labels}, [approx])))
+    return line
+
+
+def approx_sharded(session, queries, results, static) -> dict:
+    """Phase 9, sharded part, on phase 8's 4-shard session before its live
+    steps: each kind's probe equals phase 3's static probe on table ids
+    ``[0, n)``, bit for bit, and is zero beyond; the approximate answers at
+    epsilon 0 equal phase 3's exact ones and at epsilon 0.05 the static
+    session's approximate ones (ids, scores and ``ApproxInfo``)."""
+    ex = session.executor
+    n = len(static["results"]["sc"].scores)
+    t0 = time.perf_counter()
+    views = ex.sketch_views()
+    view_s = time.perf_counter() - t0
+    bad, per = [], {}
+    for label in APPROX_KINDS:
+        q = queries[label]
+        t0 = time.perf_counter()
+        probe = ex.sketch_probe(seeker_spec(session, q))
+        probe_ms = (time.perf_counter() - t0) * 1e3
+        if not same_probe(probe, static["probes"][label], n):
+            bad.append(f"{label} probe")
+        with approx_counted():
+            a0 = session.query(q, approx=APPROX_SETTINGS["eps0"])
+            a5 = session.query(q, approx={"epsilon": 0.05})
+            torch.cuda.synchronize()
+        want = static["results"][label]
+        if not same_prefix(a0, results[label], n):
+            bad.append(f"{label} eps0")
+        if not same_prefix(a5, want, n) or \
+                approx_fields(a5.approx) != approx_fields(want.approx) or \
+                not np.array_equal(a5.approx.est[:n], want.approx.est):
+            bad.append(f"{label} eps0.05")
+        per[label] = {"probe_ms": probe_ms,
+                      "escalated": [a0.approx.escalated, a5.approx.escalated],
+                      "scores_device": str(a5.scores.device)}
+    line = {"phase": "approx_shard", "views": len(views),
+            "view_build_s": view_s, "queries": per}
+    emit(line)
+    if bad:
+        raise AssertionError(f"the sharded approximate tier differs: {bad}")
+    store = session.live.store
+    approx_shapes_add(check_path_kernels(
+        session, queries, "approx_shard_kernels", record_approx(
+            lambda: blend.Session(ShardedExecutor(store, backend="bucket")),
+            ex, {label: queries[label] for label in APPROX_KINDS},
+            [APPROX_SETTINGS["eps0"], {"epsilon": 0.05}])))
+    return line
+
+
+def approx_shapes_add(counts):
+    for name, k in counts.items():
+        approx_shapes[name] += k
+
+
+def run_approx_static(session, queries, unfused, fused_p50) -> dict:
+    """Phase 9's static part and its kernel inputs against the plain
+    versions (the cached, live and sharded parts run inside phases 6, 5
+    and 8, on the sessions those hold)."""
+    t0 = time.perf_counter()
+    static = approx_static(session, queries, unfused, fused_p50)
+    approx_shapes_add(check_path_kernels(
+        session, queries, "approx_kernels", record_approx(
+            lambda: blend.Session(Executor(session.index, backend="bucket")),
+            session.executor, queries, list(APPROX_SETTINGS.values()))))
+    emit({"phase": "approx_static_summary",
+          "seconds": time.perf_counter() - t0,
+          "launches": dict(approx_launches)})
+    return static
 
 
 def superkey_digests(index):
@@ -2733,11 +3201,14 @@ def main() -> int:
     t0 = time.perf_counter()
     lake = synthetic_lake(**LAKE)
     t1 = time.perf_counter()
-    session = blend.connect(lake, backend="bucket")
+    with timed_sketches({}) as sketch_build:
+        session = blend.connect(lake, backend="bucket")
     t2 = time.perf_counter()
     engine = session.executor.engine
     emit({"phase": "index", "lake": LAKE, "lake_seconds": t1 - t0,
-          "connect_seconds": t2 - t1, "postings": session.index.n_postings,
+          "connect_seconds": t2 - t1,
+          "sketch_seconds": sketch_build["seconds"],
+          "postings": session.index.n_postings,
           "bucket_bits": session.index.bucket_bits,
           "bucket_width": engine.config.bucket_widths[0]})
     queries = make_queries(lake)
@@ -2753,12 +3224,14 @@ def main() -> int:
     check_results(session, results)
     fused_launches, fused_p50, fused_exec = run_fused_path(session, queries,
                                                            unfused)
+    static_approx = run_approx_static(session, queries, unfused, fused_p50)
     serve_launches, serve_shapes = run_serve_path(lake, session, queries,
                                                   unfused)
     server_launches, server_shapes = run_server_path(lake, session, queries,
                                                      results)
     shard_launches, shard_shapes = run_sharded_path(
-        lake, queries, session, (results, fused_p50, fused_exec))
+        lake, queries, session, (results, fused_p50, fused_exec),
+        static_approx)
     live_launches, live_shapes, live_serve, (live_server, live_server_shapes) \
         = run_live_path(lake, queries, results, t2 - t1)
     for name, n in launches.items():
@@ -2775,6 +3248,13 @@ def main() -> int:
             live_server_shapes[name]
         rows[name]["shard_launches"] = shard_launches[name]
         rows[name]["shard_shapes_checked"] = shard_shapes[name]
+        rows[name]["approx_launches"] = approx_launches[name]
+        rows[name]["approx_shapes_checked"] = approx_shapes[name]
+    emit({"phase": "approx_summary", "launches": approx_launches,
+          "shapes_checked": approx_shapes})
+    idle = [name for name, n in approx_launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"the approximate tier never launched {idle}")
 
     # phase 4 inputs from the smoke lake, then free phases 1-3
     queries_sk = (q_lo.clone(), q_hi.clone())

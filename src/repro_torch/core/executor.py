@@ -14,6 +14,8 @@ the same windows and overflow counts.  ``sync=False`` skips the
 data-dependent compaction stages (their capacity picks are host syncs).
 ``fused=True`` and ``run_many`` run plans on the fused path (core/fused.py):
 one device program per seeker group and one per plan's combiner DAG.
+``sketch_probe`` estimates one seeker's scores from the sketch tier
+(core/sketch.py) on the host, for ``Session.query(approx=...)``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core import combiners as comb
 from repro_torch.core import seekers as seek
+from repro_torch.core import sketch as sk
 from repro_torch.core.arena import Arena
 from repro_torch.core.cost_model import CostModel
 from repro_torch.core.hashing import MISSING, hash_value, row_superkey, \
@@ -35,6 +38,7 @@ from repro_torch.core.match import MatchEngine
 from repro_torch.core.optimizer import optimize as optimize_plan
 from repro_torch.core.plan import Plan, SeekerSpec
 from repro_torch.core.programs import Programs
+from repro_torch.obs import trace as otrace
 
 # the match-capacity ladder: every seeker launch uses one of these
 # capacities, so a coarse ladder keeps the window shape stable across draws
@@ -202,6 +206,9 @@ class Executor:
         self.cap_ladder = tuple(sorted(rungs))
         self._hash_cache: dict = {}
         self._hash_cache_max = 1 << 20
+        #: approximate tier: the sorted sketch views, memoized per (epoch,
+        #: geometry); rebuilt lazily like the engine, never mid-query
+        self._sketch_views_memo = None
 
     # ---------------------------------------------------------- live engine
     def _build_engine(self):
@@ -313,6 +320,112 @@ class Executor:
     def _mcap_for(self, hashes: np.ndarray) -> int:
         counts = self.index.host_counts(hashes)
         return self._quantize_cap(int(counts.max(initial=1)))
+
+    # ----------------------------------------------------------- sketch tier
+    def _sketch_sources(self):
+        """The sketch maps ({table id: TableSketch}), one per view.  The
+        sharded executor overrides this with one map per shard; the base
+        executor has one view."""
+        idx = self.index
+        if hasattr(idx, "sketch_map"):            # LiveLake SegmentStore
+            return [idx.sketch_map()]
+        return [getattr(idx, "sketches", None) or {}]
+
+    def sketch_views(self):
+        """Sorted sketch-posting views (core/sketch.py ``SketchView``),
+        memoized per (epoch, geometry): a view rebuilds only when the
+        store's epoch (an int on a live store, a tuple on a sharded one) or
+        its capacity moves, so repeated probes never re-sort and a dropped
+        table never answers from a stale view."""
+        key = (getattr(self.index, "epoch", None), self.n_tables,
+               self.max_cols)
+        memo = self._sketch_views_memo
+        if memo is None or memo[0] != key:
+            cfg = getattr(self.index, "sketch_config", None) \
+                or sk.SketchConfig()
+            views = [sk.build_view(m, self.n_tables, self.max_cols, cfg)
+                     for m in self._sketch_sources()]
+            self._sketch_views_memo = (key, views)
+        return self._sketch_views_memo[1]
+
+    def sketch_probe(self, spec: SeekerSpec,
+                     confidence: float = 0.95) -> sk.SketchProbeResult:
+        """Estimate one seeker's per-table scores from the sketch tier.
+
+        Runs the host probe on every view (per shard on a sharded lake) and
+        merges with one elementwise sum: each table's slots are nonzero on
+        exactly one view, so the merge is exact and 1- and N-shard results
+        are bit-identical.  MC has no sketch estimator (raises ValueError;
+        the session runs the exact path).  Nothing runs on the device."""
+        if not self._in_plan:
+            self.refresh()
+        t0 = time.perf_counter()
+        rec = otrace.current()
+        views = self.sketch_views()
+
+        def dispatch(make):
+            outs = []
+            for i, view in enumerate(views):
+                with rec.span("sketch.probe.pack", kind=spec.kind, pack=i):
+                    outs.append(make(view))
+            return [sum(parts) for parts in zip(*outs)]
+
+        if spec.kind in ("SC", "KW"):
+            # distinct query hashes: the exact seekers are COUNT(DISTINCT)
+            h = np.unique(self._hashed(spec.values))
+            # a table score is a max over per-column intervals: Bonferroni
+            # the per-column confidence so the max's interval holds jointly
+            comparisons = self.max_cols if spec.kind == "SC" else 1
+            z = sk.z_for(confidence, comparisons)
+            level = "col" if spec.kind == "SC" else "tbl"
+            lo, hi, est, ci_lo, ci_hi = dispatch(
+                lambda v: v.containment(h, z, level=level))
+            out = sk.SketchProbeResult(
+                kind=spec.kind, estimator="kmv-bottomk", est=est,
+                bound_lo=lo, bound_hi=hi, ci_lo=ci_lo, ci_hi=ci_hi,
+                sound=True)
+        elif spec.kind == "C":
+            pairs = list(dict.fromkeys(zip(spec.values, spec.target)))
+            h = self._hash_many([p[0] for p in pairs])
+            tgt = np.array([float(p[1]) for p in pairs])
+            qbit = (tgt >= tgt.mean()).astype(np.int8)
+            # dedupe join hashes keeping the first pair's quadrant bit (the
+            # exact seeker probes in first-occurrence order too)
+            hu, first = np.unique(h, return_index=True)
+            qb = qbit[first]
+            # the score is a max over (join col, numeric col) pairs
+            z = sk.z_for(confidence, self.max_cols ** 2)
+
+            def make(view):
+                est, lo, hi, support = view.correlation(
+                    hu, qb, z, min_support=sk.SAMPLE_MIN_SUPPORT)
+                # sound join gate: zero containment upper bound over the
+                # join values => the table cannot join => exact score is 0
+                _, cont_hi, _, _, _ = view.containment(hu, 0.0, level="col")
+                return est, lo, hi, support, cont_hi
+
+            est, ci_lo, ci_hi, support, cont_hi = dispatch(make)
+            impossible = cont_hi <= 0
+            # joinable but unseen in the sample: report the uninformative
+            # interval instead of a falsely tight one
+            no_est = (support <= 0) & ~impossible
+            est = np.where(support > 0, est, 0.0).astype(np.float32)
+            ci_lo = np.where(support > 0, ci_lo, 0.0).astype(np.float32)
+            ci_hi = np.where(impossible, 0.0,
+                             np.where(no_est, 1.0, ci_hi)).astype(np.float32)
+            out = sk.SketchProbeResult(
+                kind="C", estimator="sample-qcr", est=est, bound_lo=ci_lo,
+                bound_hi=ci_hi, ci_lo=ci_lo, ci_hi=ci_hi, sound=False,
+                impossible=impossible)
+        else:
+            raise ValueError(
+                f"no sketch estimator for seeker kind {spec.kind!r}")
+        out.seconds = time.perf_counter() - t0
+        out.launches = 0                 # host-side probe: no device programs
+        reg = obs.registry()
+        reg.counter("approx.sketch_probes").inc()
+        reg.histogram("approx.probe_seconds").observe(out.seconds)
+        return out
 
     # --------------------------------------------------------------- seekers
     def run_seeker(self, spec: SeekerSpec, allowed=None,

@@ -12,7 +12,9 @@ view differs.  torch's uint32 has no ``searchsorted``, ``>>`` or ``max``, so
   care about the sign);
 * the radix-bucket row of a key ``k`` is ``(k + 2^31) >> (32 - bits)``.
 
-The approximate sketch tier is not built (``sketches`` stays empty).
+``build_index`` also builds every table's sketch (core/sketch.py) from the
+same posting arrays, as the JAX package does: the approximate tier's host
+summaries.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import torch
 
 from repro_torch.core import hashing
 from repro_torch.core.lake import DataLake
+from repro_torch.core.sketch import SketchConfig, copy_sketches, \
+    sketch_tables
 
 SIGN = np.uint32(0x80000000)
 
@@ -100,21 +104,32 @@ class UnifiedIndex:
     bucket_offsets: np.ndarray   # i64 [2^bits + 1]
     table_rows: np.ndarray       # i32 [n_tables]
     row_stride: int              # rowkey = table * row_stride + row
+    # approximate tier: {table_id: core.sketch.TableSketch} built from the
+    # same posting arrays (see core/sketch.py for the determinism contract)
     sketches: dict = field(default_factory=dict, compare=False)
+    sketch_config: SketchConfig = field(default_factory=SketchConfig,
+                                        compare=False)
 
     @classmethod
     def from_numpy(cls, arrays: dict) -> "UnifiedIndex":
         """Build from another index's fields (for example ``vars()`` of the
         JAX package's ``UnifiedIndex``), so two systems can be handed the very
-        same arrays.  Keys this index does not hold (the sketch tier) are
-        ignored; arrays are copied."""
-        names = [f.name for f in fields(cls) if f.name != "sketches"]
+        same arrays and sketches.  Arrays are copied; each sketch is rebuilt
+        field by field (``sketch.copy_sketches``) and the sketch config
+        through its ``as_dict``, so the index holds none of the other
+        system's objects.  Without ``sketches`` the index has none."""
+        names = [f.name for f in fields(cls)
+                 if f.name not in ("sketches", "sketch_config")]
         missing = [n for n in names if n not in arrays]
         if missing:
             raise KeyError(f"index fields missing: {missing}")
         vals = {n: arrays[n] for n in names}
+        cfg = arrays.get("sketch_config")
         return cls(**{n: v.copy() if isinstance(v, np.ndarray) else v
-                      for n, v in vals.items()})
+                      for n, v in vals.items()},
+                   sketches=copy_sketches(arrays.get("sketches") or {}),
+                   sketch_config=SketchConfig.from_dict(cfg.as_dict())
+                   if cfg is not None else SketchConfig())
 
     @property
     def n_postings(self) -> int:
@@ -283,7 +298,8 @@ def numeric_view(parts: dict, row_stride: int):
 
 def build_index(lake: DataLake, bucket_bits: int = 12, seed: int = 0,
                 with_quadrants: bool = True,
-                row_stride: int | None = None) -> UnifiedIndex:
+                row_stride: int | None = None,
+                sketch_config: SketchConfig | None = None) -> UnifiedIndex:
     max_cols = 1
     table_rows = np.zeros(max(lake.n_tables, 1), np.int32)
     per_table = []
@@ -299,6 +315,7 @@ def build_index(lake: DataLake, bucket_bits: int = 12, seed: int = 0,
     validate_row_stride(lake.n_tables, row_stride, max_rows)
 
     num_perm, num_rowkey = numeric_view(parts, row_stride)
+    sketch_config = sketch_config or SketchConfig()
     return UnifiedIndex(
         cell_hash=parts["cell_hash"], table_id=parts["table_id"],
         col_id=parts["col_id"], row_id=parts["row_id"],
@@ -308,4 +325,6 @@ def build_index(lake: DataLake, bucket_bits: int = 12, seed: int = 0,
         num_perm=num_perm, num_rowkey=num_rowkey,
         n_tables=lake.n_tables, max_cols=max_cols, bucket_bits=bucket_bits,
         bucket_offsets=bucket_offsets_for(parts["cell_hash"], bucket_bits),
-        table_rows=table_rows, row_stride=row_stride)
+        table_rows=table_rows, row_stride=row_stride,
+        sketches=sketch_tables(parts, seed=seed, config=sketch_config),
+        sketch_config=sketch_config)

@@ -435,3 +435,9 @@ class ShardedExecutor(Executor):
         raise NotImplementedError(
             "single-seeker dispatch is not defined on a sharded lake; "
             "run a plan (fused path) instead")
+
+    def _sketch_sources(self):
+        # one host view per shard; table-axis partitioning makes the probe
+        # shard-local (a shard's view is all-zero outside its own tables),
+        # so the merge in sketch_probe is an exact elementwise sum
+        return [shard.sketch_map() for shard in self.index.shards]

@@ -19,15 +19,20 @@ snapshot and ``recover`` replays snapshot + write-ahead log.
 ``connect(lake, cache=True)`` gives the session a semantic query cache
 (serve/cache.py); ``explain(server=)`` renders the batching server's
 stats (serve/server.py).  ``connect(lake, shards=N)`` partitions the
-store along the table axis (dist/shard.py).  The approximate tier raises
-``NotImplementedError`` naming its ROADMAP item.
+store along the table axis (dist/shard.py).  ``query(approx=...)`` answers
+from the sketch tier (core/sketch.py) and escalates only the contended
+boundary of the top-k to the exact path.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
 
+import torch
+
 from repro_torch import obs
+from repro_torch.core import combiners as comb
+from repro_torch.core import sketch as sk
 from repro_torch.core.combiners import ResultSet
 from repro_torch.core.cost_model import CostModel
 from repro_torch.core.executor import ExecInfo, Executor
@@ -35,21 +40,13 @@ from repro_torch.core.index import build_index, resolve_device
 from repro_torch.core.optimizer import optimize as optimize_plan
 from repro_torch.core.plan import Plan
 from repro_torch.dist.shard import ShardedExecutor, ShardedStore
+from repro_torch.obs import trace as otrace
 from repro_torch.query import logical as L
 from repro_torch.query.fingerprint import object_nonce
 from repro_torch.query.lower import lower
 from repro_torch.query.parse import parse
 from repro_torch.query.rules import prune_dead_nodes, rewrite
 from repro_torch.store.live import LiveLake
-
-_LATER = {
-    "approx": "the approximate tier (ROADMAP queue A, item A7)",
-}
-
-
-def _not_ported(option: str):
-    raise NotImplementedError(f"{option} is not ported to repro_torch yet: "
-                              f"it comes with {_LATER[option]}")
 
 
 @dataclass
@@ -71,6 +68,9 @@ class QueryResult:
     _ids: list | None = None
     cache: object | None = None       # serve.cache.CacheInfo (None: cache off)
     _entry: object | None = None      # the CachedResult behind this result
+    #: core.sketch.ApproxInfo when the query ran with ``approx=`` (estimates,
+    #: intervals, escalation accounting); None on the exact path
+    approx: object | None = None
 
     @property
     def scores(self):
@@ -348,10 +348,22 @@ class Session:
         served from the exact-result cache when the canonical plan
         fingerprint matches (launching nothing); otherwise the executor runs
         with the subplan cache, which serves unrestricted seeker runs (a
-        'partial' hit).  Results are bit-identical to a cold run."""
-        if approx:
-            _not_ported("approx")
+        'partial' hit).  Results are bit-identical to a cold run.
+
+        ``approx=True`` (or ``{"epsilon": .., "confidence": ..}`` / an
+        ``ApproxParams``) answers from the sketch tier (core/sketch.py):
+        per-table estimates with confidence intervals replace the exact
+        probe, and only the contended boundary of the top-k ranking, the
+        tables whose interval both reaches the k-th-place threshold and is
+        wider than ``epsilon``, escalates to the exact path.  At
+        ``epsilon=0`` the ids are those of the exact query.  The result's
+        ``approx`` carries the estimates, intervals and escalation
+        accounting."""
         compiled = q if isinstance(q, Compiled) else self.compile(q, top=top)
+        params = sk.ApproxParams.of(approx)
+        if params is not None:
+            return self._query_approx(compiled, params, optimize=optimize,
+                                      sync=sync, fused=fused)
         cache = self.cache
         t0 = time.perf_counter()
         if cache is None:
@@ -403,6 +415,115 @@ class Session:
         # too, so a later hit on it reads nothing from the device
         return QueryResult(result=rs, info=info, compiled=compiled,
                            seconds=seconds, cache=cinfo, _entry=entry)
+
+    # ----------------------------------------------------------------- approx
+    def _query_approx(self, compiled, params, *, optimize, sync,
+                      fused) -> QueryResult:
+        """Sketch-tier execution (``query(approx=...)``).
+
+        A single-seeker SC / KW / C plan answers from the per-table sketch
+        estimates (``Executor.sketch_probe``, host NumPy), ranked by one
+        top-k on the executor's device (shard 0's, the merge device, on a
+        sharded lake).  When the escalation set (core/sketch.py) is not
+        empty the exact plan runs, through the normal cached path, and its
+        ResultSet is returned whole, which makes ``epsilon=0`` give the
+        exact ids.  Multi-node plans and MC have no sketch estimator and
+        run exact with ``approx.fallback`` set.  Approximate results are
+        cached under their own key (plan fingerprint, epsilon and
+        confidence), never served for exact requests or the other way
+        round."""
+        t0 = time.perf_counter()
+        plan = compiled.plan
+        out_node = plan.nodes[plan.output]
+        cache = self.cache
+        rkey = None
+        if cache is not None:
+            cache.begin(self.executor.index, self._cache_config())
+            rkey = cache.result_key(plan, optimize, approx=params.key())
+            entry = cache.get_result(rkey)
+            if entry is not None:
+                res = self._hit_result(entry, compiled, sync,
+                                       time.perf_counter() - t0)
+                res.approx = entry.approx
+                return res
+        reg = obs.registry() if obs.enabled() else None
+        if reg is not None:
+            reg.counter("approx.queries").inc()
+        fallback = None
+        if not (len(plan.nodes) == 1 and out_node.is_seeker):
+            fallback = "multi-node-plan"
+        elif out_node.spec.kind == "MC":
+            fallback = "mc-no-estimator"
+        if fallback is not None:
+            if reg is not None:
+                reg.counter("approx.fallbacks").inc()
+            ainfo = sk.ApproxInfo(
+                params=params,
+                kind=out_node.spec.kind if out_node.is_seeker else "plan",
+                estimator="exact-fallback", escalated=0, candidates=0,
+                threshold=0.0, fallback=fallback)
+            return self._exact_for_approx(compiled, ainfo, rkey,
+                                          optimize, sync, fused, t0)
+        spec = out_node.spec
+        with otrace.current().span("approx.query", kind=spec.kind):
+            probe = self.executor.sketch_probe(spec, params.confidence)
+            esc, candidates, thresh = sk.escalation_set(probe, spec.k, params)
+        ainfo = sk.ApproxInfo(
+            params=params, kind=spec.kind, estimator=probe.estimator,
+            escalated=len(esc), candidates=candidates, threshold=thresh,
+            est=probe.est, ci_lo=probe.ci_lo, ci_hi=probe.ci_hi,
+            escalated_ids=[int(t) for t in esc],
+            probe_seconds=probe.seconds)
+        if reg is not None:
+            reg.counter("approx.candidates").inc(candidates)
+            reg.counter("approx.escalated_tables").inc(len(esc))
+        if len(esc):
+            if reg is not None:
+                reg.counter("approx.escalations").inc()
+            return self._exact_for_approx(compiled, ainfo, rkey,
+                                          optimize, sync, fused, t0)
+        est = torch.as_tensor(probe.est, dtype=torch.float32).to(
+            self.executor.device)
+        rs = comb.topk_result(est, spec.k)
+        if sync:
+            self.executor.synchronize()
+        # the probe is host-side (0 launches); the top-k select is 1 program
+        info = ExecInfo(optimized=optimize, launches=probe.launches + 1)
+        info.node_seconds[plan.output] = probe.seconds
+        info.order.append(plan.output)
+        seconds = time.perf_counter() - t0
+        if cache is None:
+            return QueryResult(result=rs, info=info, compiled=compiled,
+                               seconds=seconds, approx=ainfo)
+        from repro_torch.serve.cache import CachedResult   # serve/ is above
+        entry = CachedResult(result=rs, info=info, plan_nodes=len(plan.nodes),
+                             approx=ainfo)
+        cache.put_result(rkey, entry, n_tables=self.executor.n_tables)
+        cache.note("miss")
+        return QueryResult(result=rs, info=info, compiled=compiled,
+                           seconds=seconds, cache=cache.request_info("miss"),
+                           _entry=entry, approx=ainfo)
+
+    def _exact_for_approx(self, compiled, ainfo, rkey, optimize, sync,
+                          fused, t0) -> QueryResult:
+        """Resolve an approximate request on the exact path (escalation or
+        fallback): the exact run goes through ``query``, so it lands in,
+        and can be served from, the exact-result cache; the same ResultSet
+        is also recorded under the approximate key with its ApproxInfo, so
+        a repeated approximate request hits directly."""
+        eres = self.query(compiled, optimize=optimize, sync=sync, fused=fused)
+        if self.cache is not None and rkey is not None:
+            from repro_torch.serve.cache import CachedResult
+            self.cache.put_result(
+                rkey, CachedResult(result=eres.result, info=eres.info,
+                                   plan_nodes=len(compiled.plan.nodes),
+                                   ids=eres._ids, approx=ainfo),
+                n_tables=self.executor.n_tables)
+        return QueryResult(result=eres.result, info=eres.info,
+                           compiled=compiled,
+                           seconds=time.perf_counter() - t0, _ids=eres._ids,
+                           cache=eres.cache, _entry=eres._entry,
+                           approx=ainfo)
 
     def sql(self, text: str, optimize: bool = True,
             sync: bool = True) -> QueryResult:

@@ -86,6 +86,12 @@ class DiscoveryResponse:
     # probes, the DAG merge, drain, host transfer.  None unless the server
     # is tracing.
     trace: object = None
+    # sketch-tier report for ``serve(query, approx=...)`` requests
+    # (core/sketch.py ApproxInfo.as_dict): epsilon / confidence, estimator,
+    # escalation accounting, and per-hit (estimate, ci_lo, ci_hi) intervals
+    # under ``"estimates"``, all plain Python numbers.  None on the exact
+    # path.
+    approx: dict | None = None
     # graceful degradation (dist/shard.py + core/fused.py): shards whose
     # probe failed twice (initial + one retry on a rebuilt shard) are
     # excluded from the merge instead of failing the request; their tables
@@ -200,12 +206,17 @@ class DiscoveryEngine:
                                  cache=res.cache.as_dict()
                                  if res.cache is not None else None,
                                  scores=scores_np,
+                                 approx=res.approx.as_dict(ids=res.ids)
+                                 if res.approx is not None else None,
                                  degraded=bool(res.info.failed_shards),
                                  failed_shards=list(res.info.failed_shards))
 
     def serve(self, query, optimize: bool = True, fused: bool = False,
               approx=False) -> DiscoveryResponse:
-        """One request; ``approx=`` raises (ROADMAP queue A, item A7)."""
+        """One request.  ``approx=`` forwards to ``Session.query``: the
+        response then answers from the sketch tier (estimates and intervals
+        in ``DiscoveryResponse.approx``) with only the contended top-k
+        boundary escalated to the exact path."""
         res = self.session.query(query, optimize=optimize, fused=fused,
                                  approx=approx)
         return self._response(res, res.seconds)

@@ -25,6 +25,8 @@ programs replayed before one DAG program are summed group by group.
 This file imports no JAX, so it runs on the H100 machine as it is:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -542,19 +544,27 @@ def test_live_program_memory_stays_flat_on_card(fused_lake, bound,
     ex = card.executor
     plan = _fused_plan(lake, 2)
     card.query(plan, fused=True)
+    # earlier tests' garbage (device tensors in reference cycles) goes
+    # before the series; within it only reference counting frees memory,
+    # so an evicted config held alive by a cycle shows as growth
+    gc.collect()
+    gc.disable()
     mem, held = [], []
-    for i in range(bound + 8):
-        t = synthetic_lake(n_tables=1, rows=8 + i, cols=4, vocab=300,
-                           seed=60 + i).tables[0]
-        tid = card.add_table(t, name=f"geometry{i}")
-        card.query(plan, fused=True)
-        card.drop_table(tid)                 # back to the base geometry
-        card.query(plan, fused=True)
-        torch.cuda.synchronize()
-        mem.append(torch.cuda.memory_allocated())
-        held.append(len({key[1:3] for key, *_ in ex.programs._programs
-                         if key[0] == "engine"}))
-        assert held[-1] <= bound
+    try:
+        for i in range(bound + 8):
+            t = synthetic_lake(n_tables=1, rows=8 + i, cols=4, vocab=300,
+                               seed=60 + i).tables[0]
+            tid = card.add_table(t, name=f"geometry{i}")
+            card.query(plan, fused=True)
+            card.drop_table(tid)             # back to the base geometry
+            card.query(plan, fused=True)
+            torch.cuda.synchronize()
+            mem.append(torch.cuda.memory_allocated())
+            held.append(len({key[1:3] for key, *_ in ex.programs._programs
+                             if key[0] == "engine"}))
+            assert held[-1] <= bound
+    finally:
+        gc.enable()
     # two sizes may pad to one geometry: the cache is full at the first
     # step that holds ``bound`` configs (the base and bound - 1 adds)
     full = held.index(bound)
@@ -1206,3 +1216,125 @@ def test_shards_on_separate_cards_merge_like_one_card(fused_lake):
     for i, sh in enumerate(ex.shards):
         assert sh.engine.dev["hash"].device == torch.device("cuda", i)
         assert sh.programs.device == torch.device("cuda", i)
+
+
+# ------------------------------------------------------- the approximate tier
+
+APPROX_PROBE_FIELDS = ("est", "bound_lo", "bound_hi", "ci_lo", "ci_hi",
+                       "impossible")
+
+
+def _approx_lake():
+    """Text columns with more distinct values than the sketches' K = 128
+    and more rows than the row sample, so SC, KW and C all estimate."""
+    return synthetic_lake(n_tables=30, rows=160, cols=4, vocab=2000,
+                          seed=0, numeric_cols=2)
+
+
+def _approx_queries(lake):
+    t, small = lake.tables[4], min(lake.tables, key=lambda t: t.n_rows)
+    cells = [lake.tables[i].columns[i % 2][i] for i in range(30)] * 2
+    return {"sc": blend.sc(cells, k=8),
+            "sc narrow": blend.sc(list(small.columns[0]), k=1),
+            "kw": blend.kw(cells, k=8),
+            "corr": blend.corr(list(t.columns[0][:48]),
+                               [float(v) for v in t.columns[2][:48]],
+                               k=8, h=64)}
+
+
+def _same_approx(got, want, ctx=""):
+    """Two ``query(approx=)`` results agree: ids, scores, launches and
+    every ``ApproxInfo`` field but the probe's seconds."""
+    _same_result(got, want, ctx)
+    assert got.info.launches == want.info.launches, ctx
+    a, b = got.approx, want.approx
+    for f in ("kind", "estimator", "escalated", "candidates", "threshold",
+              "escalated_ids", "fallback"):
+        assert getattr(a, f) == getattr(b, f), (ctx, f)
+    for f in ("est", "ci_lo", "ci_hi"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                      err_msg=f"{ctx} {f}")
+
+
+def test_approx_query_on_card_equals_cpu(cuda):
+    """A static approximate query at epsilon 0 and 0.05 on the card equals
+    the CPU port's: every probe field, ``ApproxInfo``, ids, scores and
+    launches; the top-k of the estimates runs on the card (the scores live
+    there) and at epsilon 0 the answer is the exact one."""
+    lake = _approx_lake()
+    card = blend.connect(lake, backend="bucket")
+    cpu = blend.connect(lake, backend="sorted", device="cpu")
+    branches = set()
+    for label, q in _approx_queries(lake).items():
+        spec = card.compile(q).plan.nodes[card.compile(q).plan.output].spec
+        p, w = card.executor.sketch_probe(spec), \
+            cpu.executor.sketch_probe(spec)
+        for f in APPROX_PROBE_FIELDS:
+            x, y = getattr(p, f), getattr(w, f)
+            assert (x is None) == (y is None), (label, f)
+            if x is not None:
+                np.testing.assert_array_equal(x, y, err_msg=f"{label} {f}")
+        for approx in ({"epsilon": 0.0}, {"epsilon": 0.05}):
+            for fused in (False, True):
+                got = card.query(q, approx=approx, fused=fused)
+                assert got.scores.device.type == "cuda", label
+                _same_approx(got, cpu.query(q, approx=approx, fused=fused),
+                             (label, approx, fused))
+                branches.add(bool(got.approx.escalated))
+                if approx["epsilon"] == 0.0:
+                    _same_result(got, cpu.query(q), (label, "exact"))
+    assert branches == {False, True}
+
+
+def test_sharded_approx_on_card_equals_one_shard(cuda):
+    """A 2-shard session (on two cards where present) answers every
+    approximate query like a 1-shard session: each probe bit for bit, ids,
+    scores and ``ApproxInfo``, the top-k on the merge device."""
+    lake = _approx_lake()
+    s2 = blend.connect(lake, shards=2, backend="bucket")
+    s1 = blend.connect(lake, shards=1, backend="bucket")
+    assert len(s2.executor.sketch_views()) == 2
+    for label, q in _approx_queries(lake).items():
+        spec = s1.compile(q).plan.nodes[s1.compile(q).plan.output].spec
+        a, b = s2.executor.sketch_probe(spec), s1.executor.sketch_probe(spec)
+        for f in APPROX_PROBE_FIELDS:
+            x, y = getattr(a, f), getattr(b, f)
+            assert (x is None) == (y is None), (label, f)
+            if x is not None:
+                np.testing.assert_array_equal(x, y, err_msg=f"{label} {f}")
+        for approx in ({"epsilon": 0.0}, {"epsilon": 0.05}):
+            got = s2.query(q, approx=approx)
+            assert got.scores.device == s2.executor.devices[0], label
+            _same_approx(got, s1.query(q, approx=approx), (label, approx))
+
+
+def test_cached_approx_hit_records_no_device_kernel(cuda):
+    """An approximate request misses, then hits with the same
+    ``ApproxInfo``; the hit records no device activity, launches no kernel
+    wrapper and builds no program; an exact request of the same query is
+    its own entry (``approx`` None)."""
+    lake = _approx_lake()
+    s = blend.connect(lake, cache=True, backend="bucket")
+    for label, q in _approx_queries(lake).items():
+        for approx in ({"epsilon": 0.0}, {"epsilon": 0.05}):
+            s.cache.clear()
+            first = s.query(q, approx=approx)
+            assert first.cache.status == "miss", label
+            first.ids
+            before = ([f.launches for f in QUERY_WRAPPERS],
+                      dict(seek.TRACE_COUNTS))
+            got = []
+            names = _device_events(lambda: got.append(
+                s.query(q, approx=approx)))
+            assert names == [], (label, approx, names)
+            assert ([f.launches for f in QUERY_WRAPPERS],
+                    dict(seek.TRACE_COUNTS)) == before, label
+            assert all(r.cache.status == "hit" for r in got), label
+            assert all(r.approx is first.approx for r in got), label
+            _same_result(got[-1], first, label)
+            # the exact key holds an entry only where the approximate
+            # request ran the exact path
+            exact = s.query(q)
+            assert exact.approx is None, label
+            assert exact.cache.status == (
+                "hit" if first.approx.escalated else "miss"), label

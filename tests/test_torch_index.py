@@ -32,13 +32,30 @@ def _assert_same_index(a, b):
         assert getattr(a, name) == getattr(b, name), name
 
 
+def _assert_same_sketches(a, b):
+    """The two indexes' sketch tiers agree field for field: config, table
+    ids, and every array and count of every ``TableSketch``."""
+    assert a.sketch_config.as_dict() == b.sketch_config.as_dict()
+    assert set(a.sketches) == set(b.sketches)
+    for t, want in b.sketches.items():
+        got = a.sketches[t]
+        for f in dataclasses.fields(got):
+            x, y = getattr(got, f.name), getattr(want, f.name)
+            if isinstance(y, np.ndarray):
+                assert x.dtype == y.dtype, (t, f.name)
+                np.testing.assert_array_equal(x, y, err_msg=f"{t} {f.name}")
+            else:
+                assert x == y, (t, f.name)
+
+
 @pytest.mark.parametrize("seed,bits", [(0, 12), (1, 6), (2, 9)])
 def test_build_index_matches_reference(seed, bits):
     lake = _lake(seed)
     ref = ref_build_index(lake, bucket_bits=bits)
     port = build_index(lake, bucket_bits=bits)
     _assert_same_index(port, ref)
-    assert port.sketches == {}
+    assert len(port.sketches) == lake.n_tables
+    _assert_same_sketches(port, ref)
     for width in (port.max_bucket_count(), 7):
         for got, want in zip(port.padded_buckets(width),
                              ref.padded_buckets(width)):
@@ -54,11 +71,25 @@ def test_lake_copy_matches_reference():
 
 
 def test_from_numpy_round_trip():
-    ref = ref_build_index(_lake(3))
+    from repro.core.sketch import SketchConfig as RefConfig
+    from repro_torch.core.sketch import SketchConfig, TableSketch
+    ref = ref_build_index(_lake(3), sketch_config=RefConfig(k=16,
+                                                            samples=8))
     port = UnifiedIndex.from_numpy(vars(ref))
     _assert_same_index(port, ref)
+    _assert_same_sketches(port, ref)
     assert port.cell_hash is not ref.cell_hash      # arrays are copied
-    _assert_same_index(UnifiedIndex.from_numpy(vars(port)), port)
+    # the sketch tier holds the port's own objects, arrays copied
+    assert type(port.sketch_config) is SketchConfig
+    assert port.sketch_config == SketchConfig(k=16, samples=8)
+    assert all(type(s) is TableSketch for s in port.sketches.values())
+    assert port.sketches[0].kmv is not ref.sketches[0].kmv
+    back = UnifiedIndex.from_numpy(vars(port))
+    _assert_same_index(back, port)
+    _assert_same_sketches(back, port)
+    bare = UnifiedIndex.from_numpy({k: v for k, v in vars(ref).items()
+                                    if not k.startswith("sketch")})
+    assert bare.sketches == {} and bare.sketch_config == SketchConfig()
     with pytest.raises(KeyError, match="num_perm"):
         UnifiedIndex.from_numpy({k: v for k, v in vars(ref).items()
                                  if k != "num_perm"})
@@ -107,8 +138,8 @@ def test_resolve_device_never_falls_back(monkeypatch):
 
 
 def test_index_fields_cover_reference():
-    """Every field of the JAX index but the sketch tier has a counterpart."""
+    """Every field of the JAX index has a counterpart."""
     from repro.core.index import UnifiedIndex as RefIndex
     ref = {f.name for f in dataclasses.fields(RefIndex)}
     port = {f.name for f in dataclasses.fields(UnifiedIndex)}
-    assert ref - port == {"sketch_config"}
+    assert ref - port == set()

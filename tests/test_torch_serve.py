@@ -35,6 +35,7 @@ from repro_torch.serve.engine import DiscoveryEngine, to_host
 
 from oracle import oracle_run
 from test_livelake import extra_table, small_live_lake
+from test_torch_sketch import assert_same_approx
 
 BACKENDS = ("sorted", "bucket")
 
@@ -294,10 +295,10 @@ def test_discovery_engine_live_mutations(backend):
 
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_cached_live_session_exact_parity_through_mutations(backend):
-    """The exact half of tests/test_livelake.py's cached live session
-    through mutations: every spec's ids and scores, cached, equal the JAX
-    package's cached live session at every stage; ``approx=`` raises
-    (ROADMAP queue A, item A7)."""
+    """tests/test_livelake.py's cached live session through mutations:
+    every spec's ids and scores, cached, equal the JAX package's cached
+    live session at every stage, and so does each spec's approximate
+    answer at epsilon 0, which also equals the exact one."""
     lake = small_live_lake(seed=65)
     session = blend.connect(lake, live=True, cache=True, backend=backend,
                             device="cpu")
@@ -322,6 +323,11 @@ def test_cached_live_session_exact_parity_through_mutations(backend):
                 assert got.ids == want.ids, stage
                 np.testing.assert_array_equal(got.scores.numpy(),
                                               np.asarray(want.scores))
+            got = session.query(p, approx={"epsilon": 0.0})
+            want = ref.query(rp, approx={"epsilon": 0.0})
+            assert_same_approx(got, want, stage)
+            assert got.cache.status == want.cache.status, stage
+            assert got.ids == session.query(p).ids, stage
 
     check("initial")
     for s in (session, ref):
@@ -334,5 +340,3 @@ def test_cached_live_session_exact_parity_through_mutations(backend):
     for s in (session, ref):
         s.compact()
     check("after compact")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
-        session.query(plans(Plan, Seekers)[0], approx={"epsilon": 0.0})

@@ -7,8 +7,8 @@ tests/oracle.py.
   partitioning, global geometry, ``host_counts`` sums, routing and id
   reuse, ``shape()``) are restated on the port (they import the JAX
   package inside the test), each also held to the JAX package's store.
-* tests/test_shardlake.py runs against the port without its two
-  approximate-tier cases (ROADMAP A7): each reference function, and every
+* tests/test_shardlake.py runs against the port, its two
+  approximate-tier cases included: each reference function, and every
   helper of its module, is rebound to a namespace where the lake, plan,
   store, executor and session names are the port's, on the CPU, per
   backend; its hypothesis property is re-wrapped with ``database=None``.
@@ -176,15 +176,17 @@ def test_shard_devices_wrap_onto_the_cards(monkeypatch):
 
 # ------------------------------------------- tests/test_shardlake.py, rebound
 
-#: tests/test_shardlake.py's contracts (without the approximate tier's
-#: two, which wait for ROADMAP A7), by the backends they run on: the
-#: reference pins the backend of its parity cases
+#: tests/test_shardlake.py's contracts, by the backends they run on: the
+#: reference pins the backend of its parity cases (and its sketch probe
+#: case its executors' backend, which the probe does not read)
 SHARDLAKE = {
     "test_shard_parity_bucket_backend": (None,),
     "test_shard_single_seeker_launches": (None,),
     "test_sharded_matches_oracle": BACKENDS,
     "test_shard_mutation_query_interleaving": BACKENDS,
     "test_shard_cache_hits_after_mutation_settles": BACKENDS,
+    "test_shard_sketch_probe_bit_identical": BACKENDS,
+    "test_shard_approx_query_parity": BACKENDS,
 }
 
 

@@ -186,18 +186,28 @@ def test_session_query_sql_explain_match_reference(sessions, backend):
 
 
 def test_later_slices_raise_not_implemented(sessions):
-    lake, _, ports = sessions
-    port = ports["sorted"]
-    expr = blend.kw(["tok_1"])
+    """The three entry points of the approximate tier, which raised until
+    it was ported (``Session.query(approx=)``, ``DiscoveryEngine.serve
+    (approx=)`` and the sharded session's ``query(approx=)``), answer like
+    the JAX package's."""
+    from repro.serve.engine import DiscoveryEngine as RefEngine
     from repro_torch.serve.engine import DiscoveryEngine
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
-        port.query(expr, approx=True)
-    engine = DiscoveryEngine(lake, session=port)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
-        engine.serve(expr, approx={"epsilon": 0.0})
+    from test_torch_sketch import assert_same_approx, response_approx
+    lake, ref, ports = sessions
+    port = ports["sorted"]
+    expr, ref_expr = blend.kw(["tok_1"]), ref_blend.kw(["tok_1"])
+    assert_same_approx(port.query(expr, approx=True),
+                       ref.query(ref_expr, approx=True))
+    got = DiscoveryEngine(lake, session=port).serve(
+        expr, approx={"epsilon": 0.0})
+    want = RefEngine(lake, session=ref).serve(ref_expr,
+                                              approx={"epsilon": 0.0})
+    assert got.table_ids == want.table_ids and got.table_ids
+    assert response_approx(got) == response_approx(want)
     sharded = blend.connect(lake, shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
-        sharded.query(expr, approx=True)
+    ref_sharded = ref_blend.connect(lake, shards=2)
+    assert_same_approx(sharded.query(expr, approx=True),
+                       ref_sharded.query(ref_expr, approx=True))
 
 
 # ------------------------------------ the static-index members of the surface
