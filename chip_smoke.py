@@ -188,6 +188,23 @@ Phases (each prints JSON lines):
    gains ``approx_launches`` and ``approx_shapes_checked``.  Phase 1's
    ``index`` line gives the static build's sketch seconds.
 
+10. lm (run after 4, before the ``kernels`` line): the dense LM serving
+   path (``repro_torch.models``, ``LMEngine``), TF32 off.  A memory
+   reckoning first: for each dense config, bf16 parameters plus a KV
+   cache of 8 x 2048 against the card's memory.  (a) The four dense
+   configs at ``reduced`` f32, parameters from one seeded generator: the
+   port on the card against the port on the CPU, prefill logits and
+   cache, then 8 decode steps (logits within 2e-4, cache within 1e-5,
+   ``pos`` equal).  (b) ``smollm-360m`` and ``yi-6b`` at full width in
+   bf16, parameters made on the card: ``LMEngine.generate`` of 64 new
+   tokens for 8 prompts of 1024, once to warm and once timed, and the
+   prefill step alone (prefill ms, decode ms a token, tokens a second,
+   peak memory; tokens in range, logits finite, every parameter and
+   cache tensor on the card).  (c) Decode against the full-sequence
+   forward at full width (2 sequences of 32, decode from 16):
+   ``smollm-360m`` in f32 within 2e-4, ``yi-6b`` in bf16 within 0.25.
+   The path must launch none of the hand-written kernels.
+
 Any phase that captures an empty CUDA graph fails: that warning is an
 error here.  A ``replaced_kernels`` line quotes, as constants not measured in the run,
 the device times of the superkey kernels this version replaced
@@ -245,6 +262,13 @@ from repro_torch.serve.engine import (  # noqa: E402
 from repro_torch.serve.loadgen import (  # noqa: E402
     make_trace, query_pool, replay)
 from repro_torch.serve.server import DiscoveryServer  # noqa: E402
+from repro_torch import configs as lm_configs  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.models import lm as lm_model  # noqa: E402
+from repro_torch.models import registry as lm_registry  # noqa: E402
+from repro_torch.serve.engine import LMEngine  # noqa: E402
+from repro_torch.train.step import (  # noqa: E402
+    make_prefill_step, make_serve_step)
 
 # Gittables' width (max_cols=8) and numeric share (25%), cut to 20k tables
 LAKE = dict(n_tables=20_000, rows=64, cols=8, numeric_cols=2, vocab=200_000,
@@ -3185,6 +3209,248 @@ def run_entry_points(rows_sk, queries_sk, groups) -> dict:
     return rows
 
 
+# ------------------------------------------------------------ phase 10: lm
+
+LM_DENSE = ("smollm-360m", "yi-6b", "olmo-1b", "minitron-8b")
+#: the parity rule's f32 tolerances (tests/test_models.py:70, PERF.md)
+LM_F32_ATOL = {"logits": 2e-4, "cache": 1e-5}
+LM_DECODE_STEPS = 8
+#: generate at full width in bf16: 8 prompts of 1024 tokens (q_chunk
+#: divides them), 64 new tokens each
+LM_FULL = ("smollm-360m", "yi-6b")
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 1024, 64
+#: decode against the parallel forward at full width (tests/test_models.py
+#: :52's shapes: 2 sequences of 32, decode from 16): arch -> (dtype, the
+#: stated bound on |logits error|).  f32 (TF32 off) keeps the JAX
+#: package's 2e-4; measured 3.9e-6.  bf16: measured 0.0625, two bf16
+#: steps at the largest logits (4.25); the bound is eight such steps
+LM_PARALLEL = {"smollm-360m": ("float32", 2e-4),
+               "yi-6b": ("bfloat16", 0.25)}
+#: the memory reckoning's KV cache: batch 8 x 2048 positions
+LM_RECKON_BATCH, LM_RECKON_LEN = 8, 2048
+
+
+def lm_leaves(tree) -> list:
+    return list(lm_registry.leaves(tree).values())
+
+
+def lm_to(tree, device):
+    return {k: lm_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def lm_counters() -> dict:
+    """Every hand-written kernel's launch counter (query path and entry
+    points)."""
+    return {name: getattr(mod, attr).launches
+            for name, (mod, attr, *_rest) in {**KERNELS,
+                                              **ENTRY_KERNELS}.items()}
+
+
+def on_device(tensors, dev) -> bool:
+    return all(t.device.type == dev.type for t in tensors)
+
+
+def lm_card_vs_cpu(card, dev) -> dict:
+    """(a) The four dense archs at reduced f32, parameters from one seeded
+    ``torch.Generator``: prefill logits and cache, then LM_DECODE_STEPS
+    decode steps (each fed the CPU's greedy token), the port on the card
+    against the port on the CPU."""
+    out = {}
+    for arch in LM_DENSE:
+        cfg = lm_configs.reduced(lm_configs.get_config(arch))
+        params = lm_registry.init_params(
+            cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        card_params = lm_to(params, dev)
+        tokens = lm_registry.make_batch(
+            cfg, ShapeConfig("lm", 64, 2, "prefill"),
+            torch.Generator().manual_seed(SEED + 1), device="cpu")["tokens"]
+        max_len = 64 + LM_DECODE_STEPS
+        err = {"logits": 0.0, "cache": 0.0}
+        cpu = lm_model.prefill(params, cfg, tokens, max_len)
+        got = lm_model.prefill(card_params, cfg, tokens.to(dev), max_len)
+        for step in range(LM_DECODE_STEPS + 1):
+            if step:
+                tok = cpu[1].argmax(-1).to(torch.int32)
+                cpu = lm_model.decode_step(params, cfg, cpu[0], tok)
+                got = lm_model.decode_step(card_params, cfg, got[0],
+                                           tok.to(dev))
+            err["logits"] = max(err["logits"],
+                                max_abs_err(got[1].cpu(), cpu[1]))
+            for key in ("k", "v"):
+                err["cache"] = max(err["cache"],
+                                   max_abs_err(got[0][key].cpu(), cpu[0][key]))
+            if not int(got[0]["pos"]) == int(cpu[0]["pos"]) == 64 + step:
+                raise AssertionError(f"lm {arch}: pos differs at {step}")
+        if not on_device(lm_leaves(got[0]), dev):
+            raise AssertionError(f"lm {arch}: a cache tensor left the card")
+        for key, atol in LM_F32_ATOL.items():
+            if not err[key] <= atol:
+                raise AssertionError(f"lm {arch}: card against CPU {key} "
+                                     f"|err| {err[key]} > {atol}")
+        out[arch] = err
+    emit({"phase": "lm_card_vs_cpu", "card": card, "dtype": "float32",
+          "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "decode_steps": LM_DECODE_STEPS, "atol": LM_F32_ATOL,
+          "max_abs_err": out})
+    return out
+
+
+def lm_full_width(arch, card, dev) -> dict:
+    """(b) ``LMEngine.generate`` at full width in bf16, random parameters
+    made on the card: LM_BATCH prompts of LM_PROMPT tokens, LM_NEW new
+    tokens each.  One run warms, the next is timed; the prefill step is
+    timed alone beside it."""
+    cfg = lm_configs.get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = lm_registry.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = lm_registry.make_batch(
+        cfg, ShapeConfig("lm", LM_PROMPT, LM_BATCH, "prefill"), gen,
+        device=dev)
+    max_len = LM_PROMPT + LM_NEW
+    engine = LMEngine(cfg, params, max_len, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = engine.generate(batch, LM_NEW)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks = engine.generate(batch, LM_NEW)
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    prefill = make_prefill_step(cfg, max_len)
+    decode = make_serve_step(cfg)
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, tok = prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    _, _, logits = decode(params, cache, tok)
+    on_card = on_device(lm_leaves(params) + lm_leaves(cache), dev)
+    if toks.shape != (LM_BATCH, LM_NEW) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab_padded:
+        raise AssertionError(f"lm {arch}: tokens {toks.shape} out of range")
+    if not bool(torch.isfinite(logits).all()) or not on_card:
+        raise AssertionError(f"lm {arch}: logits not finite or a tensor "
+                             "left the card")
+    p_ms = statistics.median(prefill_ms)
+    decode_ms = (gen_s * 1e3 - p_ms) / (LM_NEW - 1)
+    row = {"phase": "lm_generate", "card": card, "arch": arch,
+           "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab, "batch": LM_BATCH, "prompt": LM_PROMPT,
+           "new_tokens": LM_NEW, "params": sum(t.numel()
+                                               for t in lm_leaves(params)),
+           "init_s": init_s, "first_generate_s": first_s,
+           "generate_s": gen_s, "prefill_ms": p_ms,
+           "prefill_ms_runs": prefill_ms, "decode_ms_per_token": decode_ms,
+           "tokens_per_s": LM_BATCH * LM_NEW / gen_s,
+           "decode_tokens_per_s": LM_BATCH / decode_ms * 1e3,
+           "max_memory_allocated": peak,
+           "repeat_equal": bool(np.array_equal(first, toks)),
+           "all_on_card": on_card}
+    emit(row)
+    del params, engine, cache, batch, logits
+    return row
+
+
+def lm_decode_parallel(arch, dtype, atol, card, dev) -> dict:
+    """(c) Greedy decode logits against the full-sequence forward's, at
+    full width on the card (tests/test_models.py:52: 2 sequences of 32,
+    prefill 16, then decode)."""
+    s, s0 = 32, 16
+    cfg = lm_configs.get_config(arch).replace(dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = lm_registry.init_params(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (2, s), generator=gen,
+                           dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        hidden, _, _ = lm_model.forward_hidden(
+            params, cfg, lm_model.embed_tokens(params, cfg, tokens))
+        full = lm_model.logits_fn(params, cfg, hidden)[:, s0 - 1:s - 1]
+    cache, last = lm_model.prefill(params, cfg, tokens[:, :s0], max_len=s)
+    seq = [last]
+    dec = lm_registry.decode_fn(cfg)
+    for t in range(s0, s - 1):
+        cache, lg = dec(params, cache, tokens[:, t])
+        seq.append(lg)
+    got = torch.stack(seq, 1).float()
+    err = max_abs_err(got, full.float())
+    on_card = on_device(lm_leaves(params) + lm_leaves(cache), dev)
+    row = {"phase": "lm_decode_parallel", "card": card, "arch": arch,
+           "dtype": dtype, "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "max_abs_err": err, "atol": atol,
+           "logits_max_abs": float(full.float().abs().max()),
+           "argmax_agree": float((got.argmax(-1) == full.argmax(-1))
+                                 .float().mean()),
+           "all_on_card": on_card}
+    emit(row)
+    if not on_card or not err <= atol:
+        raise AssertionError(f"lm {arch} {dtype}: decode against parallel "
+                             f"|err| {err} > {atol}, or off the card")
+    del params, cache, full, hidden
+    return row
+
+
+def lm_memory_reckoning(card) -> dict:
+    """(d) bf16 parameters plus the KV cache at LM_RECKON_BATCH x
+    LM_RECKON_LEN for each dense config, against the card's memory."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    for arch in LM_DENSE:
+        cfg = lm_configs.get_config(arch)
+        n = sum(t.numel() for t in lm_leaves(
+            lm_registry.init_params(cfg, None, device="meta")))
+        kv = 2 * cfg.n_layers * LM_RECKON_BATCH * LM_RECKON_LEN * \
+            cfg.n_kv_heads * cfg.head_dim * 2
+        out[arch] = {"params": n, "param_bytes": 2 * n, "kv_bytes": kv,
+                     "total_bytes": 2 * n + kv, "fits": 2 * n + kv <= total}
+    emit({"phase": "lm_memory", "card": card, "dtype": "bfloat16",
+          "batch": LM_RECKON_BATCH, "positions": LM_RECKON_LEN,
+          "device_bytes": total, "configs": out})
+    return out
+
+
+def run_lm_path(card, dev=torch.device("cuda")) -> dict:
+    """Phase 10: the dense LM serving path (see the module docstring) on
+    ``dev``.  It launches none of the hand-written kernels: the JAX
+    package's LM reaches no Pallas kernel either."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    before = lm_counters()
+    reckoning = lm_memory_reckoning(card)
+    lm_card_vs_cpu(card, dev)
+    generate = {arch: lm_full_width(arch, card, dev) for arch in LM_FULL}
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel = {}
+    for arch, (dtype, atol) in LM_PARALLEL.items():
+        parallel[arch] = lm_decode_parallel(arch, dtype, atol, card, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launched = {k: n - before[k] for k, n in lm_counters().items()
+                if n != before[k]}
+    if launched:
+        raise AssertionError(f"the LM path launched hand-written kernels: "
+                             f"{launched}")
+    summary = {"phase": "lm_summary", "card": card,
+               "seconds": time.perf_counter() - t0,
+               "hand_kernel_launches": 0,
+               "fits_80gb": [a for a, r in reckoning.items() if r["fits"]],
+               "tokens_per_s": {a: r["tokens_per_s"]
+                                for a, r in generate.items()},
+               "decode_parallel_err": {a: r["max_abs_err"]
+                                       for a, r in parallel.items()}}
+    emit(summary)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3271,6 +3537,7 @@ def main() -> int:
           "profiler_sessions": [sessions_before, profiler_sessions]})
     emit({"phase": "replaced_kernels", "measured_in_this_run": False,
           **REPLACED})
+    run_lm_path(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

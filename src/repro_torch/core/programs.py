@@ -40,12 +40,27 @@ Threads.  PyTorch keeps the current device and stream per thread, so a
 capture does not take them from its caller: it runs on its ``Programs``'s
 device, on the side stream of its warm-up.  A capture is thread-local
 (``capture_error_mode="thread_local"``): another thread may allocate,
-copy, synchronize or replay on the card while it runs, a second session
-included, without failing or invalidating it.  Captures themselves are
-serialized process-wide (``_CAPTURE``): ``torch.cuda.graph`` empties the
-allocator's cache before it begins, which the allocator refuses while
-another capture is underway, and the collector switch and the warning
-filter below are process state.
+copy, synchronize its own streams (``Stream.synchronize``, ``.item()``,
+``.cpu()``) or replay on the card while it runs, a second session
+included, without failing or invalidating it.  A device-wide sync is the
+exception: CUDA forbids ``torch.cuda.synchronize()`` (and any other call
+that waits on every stream of the device) while any stream of the device
+is capturing.  Made from another thread during a capture, that call
+raises in that thread (``torch.AcceleratorError``, a ``RuntimeError``:
+"operation not permitted when stream is capturing") and invalidates the
+capture, whose next launch and end raise "operation failed due to a
+previous error during capture".  The capture is then discarded and taken
+again once, into a fresh memory pool (PyTorch leaves the failed one
+marked as recording, so no capture may use it again), and counted in the
+``programs.recaptures`` metric; a second invalidation raises
+``errors.CaptureFailed`` and caches nothing for the key.  The failed sync
+is the caller's to handle: a thread that shares the card with a
+capturing server syncs its own streams.
+Captures themselves are serialized process-wide (``_CAPTURE``):
+``torch.cuda.graph`` synchronizes the device and empties the allocator's
+cache before it begins, which the allocator refuses while another capture
+is underway, and the collector switch and the warning filter below are
+process state.
 
 The kernel wrappers count launches in Python, which a replay does not run:
 a program records how much each query-path wrapper's counter rose during
@@ -59,13 +74,16 @@ from __future__ import annotations
 
 import gc
 import math
+import re
 import threading
 import warnings
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import seekers as seek
+from repro_torch.errors import CaptureFailed
 from repro_torch.kernels.bucket_probe import ops as bucket_ops
 from repro_torch.kernels.qcr_score import ops as qcr_ops
 from repro_torch.kernels.superkey_filter import ops as sk_ops
@@ -76,6 +94,10 @@ COUNTED = ((bucket_ops, "probe"), (sk_ops, "filter_candidates"),
 
 #: serializes captures across threads (module docstring, "Threads")
 _CAPTURE = threading.Lock()
+
+#: a CUDA stream-capture error (cudaErrorStreamCapture*, codes 900-908), as
+#: PyTorch words it or as the kernel launcher (``kernels/_build.py``) does
+_CAPTURE_ERROR = re.compile(r"captur|cudaError 90[0-8]\b", re.IGNORECASE)
 
 _DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.int8): torch.int8,
            np.dtype(np.bool_): torch.bool}
@@ -112,7 +134,8 @@ def _add_counts(ticks):
 class _Graph:
     """One captured program: static inputs, the graph, static outputs."""
 
-    def __init__(self, fn, flat, layout, dev, device, pool):
+    def __init__(self, fn, flat, layout, dev, programs):
+        device = programs.device
         self.buf = torch.empty(len(flat), dtype=torch.int32, device=device)
         self.dev_in = [torch.empty_like(t) for t in dev]
         self.load(flat, dev)
@@ -128,24 +151,24 @@ class _Graph:
         # outside the shared pool (module docstring)
         self.out = tuple(torch.empty_like(t) for t in warm)
         del warm
-        before = _counts()
-        self.graph = torch.cuda.CUDAGraph()
-        with _CAPTURE, torch.cuda.device(device):
-            # the collector must not run inside the capture: freeing a
-            # dead program's graph there is an operation a capture forbids,
-            # and it invalidates the capture
-            collecting = gc.isenabled()
-            gc.disable()
+        # a capture another thread's device-wide call invalidated is taken
+        # again once, into a fresh pool (module docstring, "Threads")
+        for attempt in (0, 1):
+            before = _counts()
             try:
-                with warnings.catch_warnings(record=True) as caught:
-                    warnings.simplefilter("always")
-                    with torch.cuda.graph(self.graph, pool=pool, stream=side,
-                                          capture_error_mode="thread_local"):
-                        for static, t in zip(self.out, call()):
-                            static.copy_(t)
-            finally:
-                if collecting:
-                    gc.enable()
+                self.graph, caught = self._capture(call, side, device,
+                                                   programs.pool())
+                break
+            except RuntimeError as e:
+                if not _CAPTURE_ERROR.search(str(e)):
+                    raise
+                _add_counts([b - a for a, b in zip(_counts(), before)])
+                programs.abandon_pool()
+                if attempt:
+                    raise CaptureFailed(
+                        "a program's capture was invalidated twice by "
+                        "another thread's device-wide call") from e
+                obs.registry().counter("programs.recaptures").inc()
         self.ticks = [a - b for a, b in zip(_counts(), before)]
         _add_counts([-n for n in self.ticks])     # capture launched nothing
         for w in caught:
@@ -154,6 +177,34 @@ class _Graph:
                                    "would leave its outputs as they were")
             warnings.warn_explicit(w.message, w.category, w.filename,
                                    w.lineno)
+
+    def _capture(self, call, side, device, pool):
+        """One capture of ``call`` into a new graph -> (graph, the warnings
+        it raised)."""
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE, torch.cuda.device(device):
+            # the collector must not run inside the capture: freeing a
+            # dead program's graph there is an operation a capture forbids,
+            # and it invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            prev = torch.cuda.current_stream(device)
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    with torch.cuda.graph(graph, pool=pool, stream=side,
+                                          capture_error_mode="thread_local"):
+                        for static, t in zip(self.out, call()):
+                            static.copy_(t)
+            except RuntimeError:
+                # a capture_end that raises skips the graph context's
+                # restore of the caller's stream
+                torch.cuda.set_stream(prev)
+                raise
+            finally:
+                if collecting:
+                    gc.enable()
+        return graph, caught
 
     def load(self, flat, dev):
         # a pinned copy: the transfer is asynchronous, and the caching host
@@ -190,6 +241,18 @@ class Programs:
         self._programs = {}
         self._pool = None
 
+    def pool(self):
+        """The graph memory pool the next capture shares."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def abandon_pool(self):
+        """Give later captures a fresh pool: PyTorch leaves a pool that a
+        failed capture recorded to marked as recording, so no capture may
+        use it again.  The programs captured into it keep it."""
+        self._pool = None
+
     def run(self, key: tuple, kind: str, fn, host=(), dev=()):
         """``fn(*host operands on the device, *dev)`` -> tuple of tensors,
         through the program for ``key`` (see the module docstring).
@@ -203,9 +266,7 @@ class Programs:
                 seek._mark_trace(kind)
             return fn(*_unpack(torch.from_numpy(flat), layout), *dev)
         if prog is None:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            prog = _Graph(fn, flat, layout, dev, self.device, self._pool)
+            prog = _Graph(fn, flat, layout, dev, self)
             self._programs[full] = prog
             seek._mark_trace(kind)
         else:

@@ -14,6 +14,9 @@ system can hand back instead of crashing or serving garbage:
 * :class:`WalReplayError` — mid-log corruption in the write-ahead log
   (valid records exist *after* the bad one, so this is damage, not a torn
   tail; torn tails are silently truncated — see ``store/wal.py``).
+* :class:`CaptureFailed` — a device program's CUDA-graph capture was
+  invalidated twice in a row by another thread's device-wide call
+  (``core/programs.py``); the request it served fails, the server goes on.
 
 ``Overloaded`` and ``DeadlineExceeded`` double as *response values*: the
 server resolves futures with them rather than raising (shedding is policy,
@@ -71,3 +74,12 @@ class WalReplayError(BlendFault, ValueError):
     valid records follow it, so truncating would silently drop acknowledged
     mutations.  (A bad *tail* with nothing valid after it is a torn write
     and is truncated without error.)"""
+
+
+class CaptureFailed(BlendFault, RuntimeError):
+    """A device program's CUDA-graph capture was invalidated, and so was
+    the one retry (``core/programs.py``, "Threads"): another thread made a
+    call that a capture in progress forbids, such as
+    ``torch.cuda.synchronize()`` (a device-wide sync).  Nothing was cached
+    for the program's key, so the next request with that key captures
+    afresh.  The CUDA error is chained as ``__cause__``."""

@@ -1,14 +1,15 @@
-"""The discovery engine: serving discovery queries over a resident lake.
+"""Batched serving engines: LM decode and discovery-query serving.
+
+``LMEngine`` does prefill + greedy decode over a fixed batch of prompts
+(the dense family, ``models/lm.py``); it captures no CUDA graph, so the
+dispatcher rules of ``serve/server.py`` do not touch it.
 
 ``DiscoveryEngine`` serves discovery requests through one ``Session`` (the
 paper's deployment mode: the index is resident, queries stream in).
 ``serve`` answers one request; ``serve_many`` dispatches a batch without
 synchronizing, drains the device once and fetches every response's
-(scores, mask) in one device-to-host copy.
-
-The JAX package's ``LMEngine`` comes with ROADMAP queue A, item A8; this
-module imports no train module.  The batching front tier over this engine
-is ``serve/server.py``.
+(scores, mask) in one device-to-host copy.  The batching front tier over
+this engine is ``serve/server.py``.
 """
 from __future__ import annotations
 
@@ -19,8 +20,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.executor import ExecInfo
+from repro_torch.core.index import resolve_device
+from repro_torch.models.registry import leaves
 from repro_torch.obs import trace as otrace
 from repro_torch.query.session import connect
+from repro_torch.train.step import make_prefill_step, make_serve_step
 
 _NUMPY = {torch.float32: np.float32, torch.bool: np.bool_,
           torch.int64: np.int64}
@@ -49,6 +53,40 @@ def to_host(tensors) -> list:
         out[i] = flat[off:off + n].view(_NUMPY[tensors[i].dtype]).copy()
         off += n
     return out
+
+
+class LMEngine:
+    """Prefill, then greedy decode, over one batch of prompts on ``device``
+    (the card unless ``device="cpu"``).  ``params`` must lie on that device
+    already (``registry.init_params`` / ``params_from_numpy`` with the same
+    ``device``): nothing is moved, and nothing runs elsewhere."""
+
+    def __init__(self, cfg, params, max_len: int, device=None):
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.device = resolve_device(device)
+        strays = [str(t.device) for t in leaves(params).values()
+                  if t.device.type != self.device.type
+                  or self.device.index not in (None, t.device.index)]
+        if strays:
+            raise ValueError(f"LMEngine on {self.device}: parameters lie on "
+                             f"{sorted(set(strays))}")
+        self._prefill = make_prefill_step(cfg, max_len)
+        self._decode = make_serve_step(cfg)
+
+    @torch.inference_mode()
+    def generate(self, batch: dict, n_tokens: int) -> np.ndarray:
+        """``batch["tokens"]`` [B, S] (numpy or a tensor) -> the greedy
+        tokens [B, n_tokens], the first from the prefill; one copy to the
+        host at the end."""
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device, torch.int32)
+        cache, tok = self._prefill(self.params, {"tokens": tokens})
+        out = [tok]
+        for _ in range(n_tokens - 1):
+            cache, tok, _ = self._decode(self.params, cache, tok)
+            out.append(tok)
+        return torch.stack(out, dim=1).cpu().numpy()        # [B, n_tokens]
 
 
 @dataclass

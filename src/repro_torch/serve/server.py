@@ -45,8 +45,18 @@ captures of new geometries) and ``serve_many``'s pinned transfer run on
 it too, inside the batch's ``LiveLake.barrier()``.  ``explain`` takes the
 engine lock and runs between batches, on the same device and stream.
 Another thread may use the card meanwhile, a second session included:
-captures are thread-local (core/programs.py).  ``AsyncDiscoveryServer`` is
-the asyncio façade: the same futures awaited via ``asyncio.wrap_future``.
+captures are thread-local (core/programs.py).  One call is the limit: a
+device-wide ``torch.cuda.synchronize()`` in another thread while the
+dispatcher captures a geometry it has not seen raises in that thread
+(``torch.AcceleratorError``, "operation not permitted when stream is
+capturing"), because CUDA forbids it during any capture, and it
+invalidates the capture.  The dispatcher takes that capture again once
+(the ``programs.recaptures`` metric) and answers the request; were the
+retry invalidated too, the request's future would hold the typed
+``errors.CaptureFailed`` and the server would go on.  A thread beside a
+capturing server syncs its own streams (``Stream.synchronize``).
+``AsyncDiscoveryServer`` is the asyncio façade: the same futures awaited
+via ``asyncio.wrap_future``.
 """
 from __future__ import annotations
 

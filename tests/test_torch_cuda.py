@@ -1019,6 +1019,142 @@ def test_server_live_barriers_on_card(fused_lake):
             _mapped_equal(g, w, tid, tid2, (i, j))
 
 
+def test_device_sync_during_a_server_capture_on_card(fused_lake,
+                                                     monkeypatch):
+    """ROADMAP section C 1: a user thread calls ``torch.cuda.synchronize()``
+    while the server's dispatcher captures a geometry it has not seen.  The
+    overlap is forced, not timed: the captured callable signals on entry
+    and waits (5 s at most) for the user's sync to have returned or raised
+    before it goes on.  The test records which call failed and how (the
+    user's sync, the capture, or neither; the exception type and the CUDA
+    error), prints it as a ``c1_outcome`` JSON line, and asserts that the
+    server keeps running, that the request and the same request again (a
+    replay, no capture) are answered as sequential ``serve`` answers them,
+    and that any error a client sees is one of the port's typed errors."""
+    import json
+    import threading
+    import time
+    from repro_torch import errors, obs
+    from repro_torch.core import programs
+    from repro_torch.serve.server import DiscoveryServer
+    lake, _ = fused_lake
+    t = lake.tables[5]
+    query = (blend.sc(list(t.columns[0][:7]), k=13) |
+             blend.kw([t.columns[1][0]], k=13)).top(13)
+    want = DiscoveryEngine(lake, backend="bucket").serve(query, fused=True)
+    torch.cuda.synchronize()
+    entered, synced = threading.Event(), threading.Event()
+    outcome = {"user": None, "capture": [], "user_waited_s": None}
+    armed = [True]
+
+    def describe(e):
+        return {"type": type(e).__name__, "error": str(e).splitlines()[0]}
+
+    class HeldGraph(programs._Graph):
+        def __init__(self, fn, *args):
+            def held(*a):
+                if armed[0] and torch.cuda.is_current_stream_capturing():
+                    armed[0] = False
+                    entered.set()
+                    synced.wait(timeout=5)
+                try:
+                    return fn(*a)
+                except RuntimeError as e:
+                    outcome["capture"].append(describe(e))
+                    raise
+            super().__init__(held, *args)
+
+    end_capture = torch.cuda.CUDAGraph.capture_end
+
+    def capture_end(graph):
+        try:
+            return end_capture(graph)
+        except RuntimeError as e:
+            outcome["capture"].append(describe(e))
+            raise
+
+    monkeypatch.setattr(programs, "_Graph", HeldGraph)
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_end", capture_end)
+
+    def user():
+        assert entered.wait(timeout=120)
+        t0 = time.perf_counter()
+        try:
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            outcome["user"] = describe(e)
+        finally:
+            outcome["user_waited_s"] = time.perf_counter() - t0
+            synced.set()
+
+    def answer(q):
+        # a raw RuntimeError raises here and fails the test
+        try:
+            return srv.submit(q).result(timeout=120)
+        except errors.BlendFault as e:
+            return e
+
+    reg = obs.enable()
+    worker = threading.Thread(target=user)
+    srv = DiscoveryServer(DiscoveryEngine(lake, backend="bucket"))
+    try:
+        worker.start()
+        first = answer(query)
+        outcome["first_request"] = type(first).__name__
+        worker.join(timeout=120)
+        assert not worker.is_alive()
+        built = sum(seek.TRACE_COUNTS.values())
+        second = answer(query)
+        running = srv.stats()["running"]
+    finally:
+        srv.stop()
+        obs.disable()
+        recaptures = outcome["recaptures"] = \
+            reg.counter("programs.recaptures").value
+        print("c1_outcome " + json.dumps(outcome))
+    assert not armed[0], "the capture never ran the held callable"
+    assert running
+    _same_response(second, want)
+    if not isinstance(first, errors.BlendFault):
+        _same_response(first, want)
+        # the program was kept: the second request replayed it
+        assert sum(seek.TRACE_COUNTS.values()) == built
+    assert recaptures == (1 if outcome["capture"] else 0)
+
+
+def test_lm_engine_on_card_equals_cpu(cuda):
+    """``LMEngine`` on the card gives the CPU port's greedy tokens for the
+    four dense archs at reduced f32 (TF32 off), with every parameter and
+    cache tensor on the card."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import lm, registry
+    from repro_torch.serve.engine import LMEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = ShapeConfig("s", 64, 2, "prefill")
+    for arch in ("smollm-360m", "yi-6b", "olmo-1b", "minitron-8b"):
+        cfg = reduced(get_config(arch))
+        cpu = registry.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu")
+        card = _to(cpu, cuda)
+        tokens = registry.make_batch(cfg, shape,
+                                     torch.Generator().manual_seed(1),
+                                     device="cpu")["tokens"]
+        want = LMEngine(cfg, cpu, 72, device="cpu").generate(
+            {"tokens": tokens}, 8)
+        got = LMEngine(cfg, card, 72, device=cuda).generate(
+            {"tokens": tokens}, 8)
+        np.testing.assert_array_equal(got, want, err_msg=arch)
+        cache, _ = lm.prefill(card, cfg, tokens.to(cuda), 72)
+        assert all(v.is_cuda for v in cache.values())
+        assert all(v.is_cuda for v in registry.leaves(card).values())
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
 # ------------------------------------------------------- the sharded lake
 
 def _same_result(got, want, ctx=""):

@@ -185,7 +185,7 @@ def test_session_query_sql_explain_match_reference(sessions, backend):
         (ref_ex.ids, ref_ex.launches, ref_ex.overflow)
 
 
-def test_later_slices_raise_not_implemented(sessions):
+def test_later_slices_answer_like_the_jax_package(sessions):
     """The three entry points of the approximate tier, which raised until
     it was ported (``Session.query(approx=)``, ``DiscoveryEngine.serve
     (approx=)`` and the sharded session's ``query(approx=)``), answer like
@@ -268,7 +268,7 @@ def test_index_shape_and_explain_index_block_match_reference(sessions,
     assert got[-1] == "== physical order (ranked execution groups) =="
 
 
-def test_explain_fused_and_server_raise_not_implemented(sessions):
+def test_explain_fused_and_server_answer(sessions):
     """Neither raises any more: ``server=`` (a ``DiscoveryServer.stats()``
     dict) renders the ``== server ==`` section, and ``fused=True`` runs and
     gives the unfused ids."""
@@ -321,6 +321,18 @@ with DiscoveryServer(eng) as srv:
     assert resp.table_ids == got[0].table_ids and srv.stats()["served"] == 1
 assert not srv.stats()["running"]
 assert loadgen.make_trace(lake, duration_s=0.1).events
+import torch
+from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.models import registry
+from repro_torch.serve.engine import LMEngine
+cfg = reduced(get_config("smollm-360m"))
+gen = torch.Generator().manual_seed(0)
+params = registry.init_params(cfg, gen, device="cpu")
+batch = registry.make_batch(cfg, ShapeConfig("s", 32, 2, "prefill"), gen,
+                            device="cpu")
+toks = LMEngine(cfg, params, 40, device="cpu").generate(batch, 4)
+assert toks.shape == (2, 4)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
              or m in ("repro", "blend"))
