@@ -204,6 +204,28 @@ Phases (each prints JSON lines):
    forward at full width (2 sequences of 32, decode from 16):
    ``smollm-360m`` in f32 within 2e-4, ``yi-6b`` in bf16 within 0.25.
    The path must launch none of the hand-written kernels.
+11. train: the discovery-fed trainer (``repro_torch.data.pipeline``,
+   ``train/step.py``, ``train/checkpoint.py``, ``launch/train.py``).
+   (11a, right after phase 3's check, on phase 3's ``bucket`` session)
+   ``select_tables`` runs examples/train_tiny_lm.py's plan shape on the
+   smoke lake: KW over a seed table's first column and SC over its
+   second, each top 200, then ``counter(k=200)``; its ids must equal the
+   same plan through the check's ``sorted`` executor on the card and the
+   CPU port, and ``tokenize_tables`` keeps the tokens.  (11b-11d, after
+   phase 10, TF32 off) (11b) one train step of each dense config at
+   ``reduced`` f32: the loss within 1e-5 and every gradient leaf within
+   1e-5 of its largest magnitude, card against CPU.  (11c)
+   ``smollm-360m`` at full width and depth and ``yi-6b`` at full width
+   and 4 of its 32 layers (its own ``grad_accum`` 2), bf16 parameters and
+   f32 AdamW state, remat on, batch 8 x 4096 (``train_4k``'s 256 cut to
+   8): step seconds (the median of 3 after a warm-up step), tokens a
+   second, peak memory; the loss on the repeated batch falls.  (11d)
+   ``train_loop`` on 11a's ``TokenStream`` (8 x 1024) with
+   ``smollm-360m`` at full width and 2 layers: 8 steps with a checkpoint
+   every 4, then 4 steps and a run resumed from step 4 to 8, whose losses
+   must equal the uninterrupted run's (``LOOP_ATOL``); the loss falls.
+   Like phase 10, the training path must launch none of the hand-written
+   kernels.
 
 Any phase that captures an empty CUDA graph fails: that warning is an
 error here.  A ``replaced_kernels`` line quotes, as constants not measured in the run,
@@ -268,7 +290,12 @@ from repro_torch.models import lm as lm_model  # noqa: E402
 from repro_torch.models import registry as lm_registry  # noqa: E402
 from repro_torch.serve.engine import LMEngine  # noqa: E402
 from repro_torch.train.step import (  # noqa: E402
-    make_prefill_step, make_serve_step)
+    grads_of, make_prefill_step, make_serve_step, make_train_state,
+    make_train_step)
+from repro_torch.core.plan import Combiners, Plan, Seekers  # noqa: E402
+from repro_torch.data import pipeline  # noqa: E402
+from repro_torch.data.pipeline import TokenStream  # noqa: E402
+from repro_torch.launch.train import TrainLoopConfig, train_loop  # noqa
 
 # Gittables' width (max_cols=8) and numeric share (25%), cut to 20k tables
 LAKE = dict(n_tables=20_000, rows=64, cols=8, numeric_cols=2, vocab=200_000,
@@ -908,6 +935,7 @@ def check_results(session, results):
     if not any(s["n_ids"] for s in summary.values()):
         raise AssertionError("every query came back empty")
     emit({"phase": "check", "equal_to": sorted(others), "queries": summary})
+    return others
 
 
 # ------------------------------------------------------------ phase 5: live
@@ -3451,6 +3479,286 @@ def run_lm_path(card, dev=torch.device("cuda")) -> dict:
     return summary
 
 
+# --------------------------------------------------------- phase 11: train
+
+#: 11a: examples/train_tiny_lm.py's discovery-selected training data on the
+#: smoke lake: KW over a seed table's first column and SC over its second,
+#: each top TRAIN_SELECT, then Counter(k=TRAIN_SELECT)
+TRAIN_SEED_TABLE = 11
+TRAIN_SELECT = 200
+#: 11b: one train step of each dense config at reduced f32 (TF32 off), the
+#: card against the CPU: the loss within TRAIN_LOSS_ATOL, each gradient leaf
+#: within TRAIN_GRAD_RTOL of its largest magnitude (the JAX package's parity
+#: bounds of tests/test_torch_train.py)
+TRAIN_LOSS_ATOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-5
+TRAIN_CHECK_SHAPE = (4, 64)
+#: 11c: full width, bf16 parameters, f32 AdamW state, remat on, at
+#: train_4k's sequence with its global batch 256 cut to TRAIN_BATCH;
+#: yi-6b keeps 4 of its 32 layers (and its own grad_accum 2)
+TRAIN_BATCH, TRAIN_SEQ = 8, 4096
+TRAIN_FULL = {"smollm-360m": {}, "yi-6b": {"n_layers": 4}}
+TRAIN_TIMED = 3
+#: 11d: train_loop on 11a's stream: smollm-360m at full width and 2 layers
+#: (a checkpoint of about 0.67 GB), 8 steps with a checkpoint every 4, then
+#: 4 steps and a resumed run to 8
+LOOP_ARCH, LOOP_LAYERS = "smollm-360m", 2
+LOOP_BATCH, LOOP_SEQ, LOOP_STEPS, LOOP_EVERY = 8, 1024, 8, 4
+#: the resumed run's losses against the uninterrupted run's
+LOOP_ATOL = 0.0
+
+
+def train_select_plan(lake) -> Plan:
+    seed = lake.tables[TRAIN_SEED_TABLE]
+    plan = Plan()
+    plan.add("kw", Seekers.KW(list(seed.columns[0]), k=TRAIN_SELECT))
+    plan.add("sc", Seekers.SC(list(seed.columns[1]), k=TRAIN_SELECT))
+    plan.add("out", Combiners.Counter(k=TRAIN_SELECT), ["kw", "sc"])
+    return plan
+
+
+def run_train_select(lake, session, others, card) -> np.ndarray:
+    """Phase 11a on phase 3's ``bucket`` session: ``select_tables`` runs the
+    plan, its ids must equal the same plan through the other executors of
+    the check (``sorted`` on the card, the CPU port), and the selected
+    tables are tokenized at LOOP_ARCH's vocabulary.  Its launches are the
+    phase's own: taken back off phase 3's counters."""
+    plan = train_select_plan(lake)
+    slot = {id(t): i for i, t in enumerate(lake.tables)}
+    with uncounted():
+        before = kernel_launches()
+        t0 = time.perf_counter()
+        tables = pipeline.select_tables(lake, plan, session.executor)
+        select_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: n - before[k] for k, n in kernel_launches().items()}
+        ids = [slot[id(t)] for t in tables]
+        equal = {}
+        for name, ex in others.items():
+            rs, _ = ex.run(plan, optimize=True)
+            equal[name] = [int(t) for t in rs.ids()] == ids
+    t0 = time.perf_counter()
+    tokens = pipeline.tokenize_tables(
+        tables, vocab=lm_configs.get_config(LOOP_ARCH).vocab)
+    tokenize_s = time.perf_counter() - t0
+    emit({"phase": "train_select", "card": card,
+          "seed_table": TRAIN_SEED_TABLE, "k": TRAIN_SELECT,
+          "plan": "counter(kw(seed col 0), sc(seed col 1))",
+          "n_tables": len(ids), "top": ids[:8], "ids_equal": equal,
+          "select_ms": select_ms, "launches": launches,
+          "tokens": len(tokens), "tokenize_s": tokenize_s})
+    if not ids or not all(equal.values()):
+        raise AssertionError(f"train_select: {len(ids)} tables, equal to "
+                             f"the other executors: {equal}")
+    return tokens
+
+
+def grad_err(got, want) -> float:
+    """The largest |error| of any gradient leaf over that leaf's largest
+    magnitude."""
+    got, want = lm_registry.leaves(got), lm_registry.leaves(want)
+    return max(max_abs_err(got[k].cpu(), w) / max(float(w.abs().max()),
+                                                   1e-30)
+               for k, w in want.items())
+
+
+def train_card_vs_cpu(card, dev) -> dict:
+    """(11b) One train step of each dense config at reduced f32 from one
+    seeded generator: the loss and every gradient leaf on the card against
+    the CPU port's; then ``make_train_step`` on the card, whose loss is the
+    one held."""
+    out = {}
+    for arch in LM_DENSE:
+        cfg = lm_configs.reduced(lm_configs.get_config(arch))
+        state = make_train_state(cfg, torch.Generator().manual_seed(SEED),
+                                 device="cpu")
+        card_state = lm_to(state, dev)
+        tokens = torch.randint(0, cfg.vocab, TRAIN_CHECK_SHAPE,
+                               generator=torch.Generator().manual_seed(
+                                   SEED + 1), dtype=torch.int32)
+        loss = lm_registry.loss_fn(cfg)
+        (l_cpu, _), g_cpu = grads_of(loss, state["params"],
+                                     {"tokens": tokens})
+        (l_card, _), g_card = grads_of(loss, card_state["params"],
+                                       {"tokens": tokens.to(dev)})
+        card_state, metrics = make_train_step(cfg)(
+            card_state, {"tokens": tokens.to(dev)})
+        out[arch] = {"loss": float(l_cpu),
+                     "loss_err": abs(float(l_card) - float(l_cpu)),
+                     "grad_rel_err": grad_err(g_card, g_cpu),
+                     "step_loss_err": abs(float(metrics["loss"]) -
+                                          float(l_card)),
+                     "on_card": on_device(lm_leaves(card_state) +
+                                          lm_leaves(g_card), dev)}
+    emit({"phase": "train_card_vs_cpu", "card": card, "dtype": "float32",
+          "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "batch": list(TRAIN_CHECK_SHAPE), "loss_atol": TRAIN_LOSS_ATOL,
+          "grad_rtol": TRAIN_GRAD_RTOL, "archs": out})
+    for arch, r in out.items():
+        if not (r["loss_err"] <= TRAIN_LOSS_ATOL and r["grad_rel_err"] <=
+                TRAIN_GRAD_RTOL and r["step_loss_err"] <= TRAIN_LOSS_ATOL
+                and r["on_card"]):
+            raise AssertionError(f"train {arch}: card against CPU {r}")
+    return out
+
+
+def train_flops(cfg, batch, seq) -> dict:
+    """The step's products counted from the shapes, with remat: each
+    product runs forward, again in the backward pass, and twice backward
+    (x4); attention's score and value products once more (each block's
+    step is checkpointed inside the layer's, x5); the triangular schedule
+    visits nq (nq + 1) / 2 of nq^2 block pairs."""
+    d, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
+    per_layer = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + \
+        3 * d * cfg.d_ff
+    n_matmul = L * per_layer + d * cfg.vocab_padded
+    tokens = batch * seq
+    nq = seq // min(cfg.q_chunk, seq)
+    pairs = nq * (nq + 1) // 2 if cfg.causal_block_skip else nq * nq
+    tq = seq // nq
+    attn_fwd = L * pairs * 4 * batch * cfg.n_heads * tq * tq * hd
+    remat = 4 if cfg.remat else 3
+    return {"matmul_bf16": 2 * tokens * n_matmul * remat,
+            "attention_f32": attn_fwd * (remat + 1)}
+
+
+def train_full_width(arch, overrides, card, dev) -> dict:
+    """(11c) ``make_train_step`` at full width, bf16 parameters and f32
+    AdamW state made on the card: one warm-up step, then TRAIN_TIMED timed
+    steps on the same batch (step seconds, tokens a second, peak
+    memory)."""
+    cfg = lm_configs.get_config(arch).replace(**overrides)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    state = make_train_state(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, dtype=torch.int32, device=dev)
+    step = make_train_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = step(state, {"tokens": tokens})
+    losses = [float(metrics["loss"])]
+    warm_s = time.perf_counter() - t0
+    times = []
+    for _ in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": tokens})
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times)
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    params = lm_leaves(state["params"])
+    row = {"phase": "train_step", "card": card, "arch": arch,
+           "n_layers": cfg.n_layers, "of_layers":
+           lm_configs.get_config(arch).n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "opt_state_dtype": cfg.opt_state_dtype,
+           "remat": cfg.remat, "grad_accum": cfg.grad_accum,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "reduced": "train_4k's global batch 256 cut to 8" + (
+               f"; {cfg.n_layers} of {lm_configs.get_config(arch).n_layers}"
+               " layers" if overrides else ""),
+           "params": sum(t.numel() for t in params),
+           "state_bytes": sum(t.numel() * t.element_size()
+                              for t in lm_leaves(state)),
+           "init_s": init_s, "warm_step_s": warm_s, "step_s": step_s,
+           "step_s_runs": times, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ /
+           step_s, "losses": losses, "est_flop": flops,
+           "est_tflops_per_s": sum(flops.values()) / step_s / 1e12,
+           "max_memory_allocated": peak,
+           "all_on_card": on_device(lm_leaves(state), dev)}
+    emit(row)
+    if not all(math.isfinite(x) for x in losses) or not row["all_on_card"] \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"train {arch}: losses {losses}, on card "
+                             f"{row['all_on_card']}")
+    del state, params, tokens, metrics
+    return row
+
+
+def train_loop_resume(tokens, card, dev) -> dict:
+    """(11d) ``train_loop`` on 11a's ``TokenStream``: LOOP_STEPS steps
+    uninterrupted with a checkpoint every LOOP_EVERY, then LOOP_EVERY steps
+    and a run resumed from their checkpoint to LOOP_STEPS; the resumed
+    losses equal the uninterrupted run's, and the loss falls."""
+    cfg = lm_configs.get_config(LOOP_ARCH).replace(n_layers=LOOP_LAYERS)
+    stream = TokenStream(tokens, batch=LOOP_BATCH, seq_len=LOOP_SEQ,
+                         seed=SEED)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    runs = {}
+    try:
+        for name, steps, sub in (("full", LOOP_STEPS, "a"),
+                                 ("part1", LOOP_EVERY, "b"),
+                                 ("part2", LOOP_STEPS, "b")):
+            t0 = time.perf_counter()
+            runs[name] = train_loop(cfg, stream, TrainLoopConfig(
+                steps=steps, ckpt_every=LOOP_EVERY,
+                ckpt_dir=str(root / sub)), device=dev)
+            runs[name].wall_s = time.perf_counter() - t0
+        last = root / "b" / f"step_{LOOP_STEPS:08d}"
+        ckpt_bytes = sum(f.stat().st_size for f in last.iterdir())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    full, part1, part2 = runs["full"], runs["part1"], runs["part2"]
+    diffs = [abs(a - b) for a, b in zip(full.losses[LOOP_EVERY:],
+                                        part2.losses)]
+    first = [abs(a - b) for a, b in zip(full.losses[:LOOP_EVERY],
+                                        part1.losses)]
+    row = {"phase": "train_loop", "card": card, "arch": LOOP_ARCH,
+           "n_layers": LOOP_LAYERS, "batch": LOOP_BATCH, "seq": LOOP_SEQ,
+           "stream_tokens": len(tokens), "steps": LOOP_STEPS,
+           "ckpt_every": LOOP_EVERY, "checkpoint_bytes": ckpt_bytes,
+           "resumed_from": part2.resumed_from, "losses": full.losses,
+           "resumed_losses": part2.losses, "resumed_max_abs_diff":
+           max(diffs), "resumed_exact": max(diffs) == 0.0,
+           "first_max_abs_diff": max(first),
+           "step_s_median": statistics.median(full.step_seconds),
+           "wall_s": {k: r.wall_s for k, r in runs.items()},
+           "straggler_steps": full.straggler_steps}
+    emit(row)
+    if part2.resumed_from != LOOP_EVERY or part2.final_step != LOOP_STEPS \
+            or len(part2.losses) != LOOP_STEPS - LOOP_EVERY or \
+            max(diffs) > LOOP_ATOL or not full.losses[-1] < full.losses[0]:
+        raise AssertionError(f"train_loop: resumed from "
+                             f"{part2.resumed_from}, losses {full.losses} "
+                             f"against {part2.losses}")
+    return row
+
+
+def run_train_path(card, tokens, dev=torch.device("cuda")) -> dict:
+    """Phase 11b-d (see the module docstring) on ``dev``, after phase 10:
+    the dense LM's training path launches none of the hand-written
+    kernels (the JAX package's trains through ``chunked_attention``)."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    before = lm_counters()
+    train_card_vs_cpu(card, dev)
+    full = {}
+    for arch, overrides in TRAIN_FULL.items():
+        full[arch] = train_full_width(arch, overrides, card, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    loop = train_loop_resume(tokens, card, dev)
+    launched = {k: n - before[k] for k, n in lm_counters().items()
+                if n != before[k]}
+    if launched:
+        raise AssertionError(f"the training path launched hand-written "
+                             f"kernels: {launched}")
+    summary = {"phase": "train_summary", "card": card,
+               "seconds": time.perf_counter() - t0,
+               "hand_kernel_launches": 0,
+               "step_s": {a: r["step_s"] for a, r in full.items()},
+               "tokens_per_s": {a: r["tokens_per_s"] for a, r in full.items()},
+               "max_memory_allocated": {a: r["max_memory_allocated"]
+                                        for a, r in full.items()},
+               "resumed_max_abs_diff": loop["resumed_max_abs_diff"]}
+    emit(summary)
+    return summary
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3487,7 +3795,9 @@ def main() -> int:
         engine, q_lo, q_hi, session.executor.m_cap_max))
     unfused = run_main_path(session, queries)
     results, launches, _ = unfused
-    check_results(session, results)
+    others = check_results(session, results)
+    train_tokens = run_train_select(lake, session, others, card)
+    del others
     fused_launches, fused_p50, fused_exec = run_fused_path(session, queries,
                                                            unfused)
     static_approx = run_approx_static(session, queries, unfused, fused_p50)
@@ -3538,6 +3848,7 @@ def main() -> int:
     emit({"phase": "replaced_kernels", "measured_in_this_run": False,
           **REPLACED})
     run_lm_path(card)
+    run_train_path(card, train_tokens)
     print(json.dumps({"kernels": list(rows.values())}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

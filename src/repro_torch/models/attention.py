@@ -15,14 +15,18 @@ only visits j <= i blocks.
 Left out, because they mean nothing without a device mesh: the sharding
 hooks ``maybe_constrain``, ``_heads_factorizable`` and ``_constrain_blocks``
 (context-parallel pinning of the query-chunk dim).  They come with
-ROADMAP queue A, item A8d.  ``jax.checkpoint`` around the scan steps only
-matters for a backward pass and comes with training (A8c).
+ROADMAP queue A, item A8d.  Each ``jax.checkpoint`` around a scan step
+is ``layers.checkpoint`` here (``torch.utils.checkpoint`` without
+reentry, a plain call without autograd): each query chunk and, inside
+it, each key/value step of the rectangular schedule, and each block pair
+of the triangular one, so the backward pass recomputes the score tiles
+instead of keeping a [B, K, G, Tq, Tk] residual per block.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, checkpoint, dense_init
 
 NEG_INF = -1e30
 
@@ -120,15 +124,18 @@ def _rect_attention(qb, kb, vb, scale, q_chunk, kv_chunk, causal, q_offset,
                     kv_lens):
     nq, B, K, G, Tq, D = qb.shape
     nk = kb.shape[0]
-    out = []
-    for qi in range(nq):
+
+    def per_q(qi, q_blk):
         m, l, acc = _init_state((B, K, G, Tq), D, qb.device)
         for kj in range(nk):
-            m, l, acc = _block(qb[qi], kb[kj], vb[kj], m, l, acc, qi, kj,
-                               scale, q_chunk, kv_chunk, causal, q_offset,
-                               kv_lens)
-        out.append(_finish(m, l, acc, qb.dtype))
-    return torch.stack(out)
+            # remat: recompute scores/probs/mask in bwd instead of saving
+            # the [B,K,G,Tq,Tk] residuals per block
+            m, l, acc = checkpoint(_block, q_blk, kb[kj], vb[kj], m, l, acc,
+                                   qi, kj, scale, q_chunk, kv_chunk, causal,
+                                   q_offset, kv_lens)
+        return _finish(m, l, acc, qb.dtype)
+
+    return torch.stack([checkpoint(per_q, qi, qb[qi]) for qi in range(nq)])
 
 
 def _triangular_attention(qb, kb, vb, scale, q_chunk, kv_chunk, q_offset,
@@ -144,8 +151,9 @@ def _triangular_attention(qb, kb, vb, scale, q_chunk, kv_chunk, q_offset,
     for i in range(nq):
         m, l, acc = _init_state((B, K, G, Tq), D, qb.device)
         for j in range(i + 1):
-            m, l, acc = _block(qb[i], kb[j], vb[j], m, l, acc, i, j, scale,
-                               q_chunk, kv_chunk, True, q_offset, kv_lens)
+            m, l, acc = checkpoint(_block, qb[i], kb[j], vb[j], m, l, acc,
+                                   i, j, scale, q_chunk, kv_chunk, True,
+                                   q_offset, kv_lens)
         out.append(_finish(m, l, acc, qb.dtype))
     return torch.stack(out)
 

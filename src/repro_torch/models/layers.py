@@ -3,12 +3,14 @@
 The JAX package's ``models/layers.py`` on torch.  Initialisation draws from
 an explicit ``torch.Generator`` (on the device of the tensor it fills);
 ``generator=None`` with ``device="meta"`` gives the shapes and dtypes of a
-tree without allocating it.
+tree without allocating it.  ``checkpoint`` is ``jax.checkpoint``'s
+counterpart, for the LM's training path.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as torch_checkpoint
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -18,6 +20,18 @@ def dtype_of(name: str) -> torch.dtype:
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dtype
+
+
+def checkpoint(fn, *args):
+    """``jax.checkpoint(fn)(*args)``: under autograd, ``fn`` keeps none of
+    its intermediates for the backward pass, which runs it again
+    (``torch.utils.checkpoint`` without reentry; nothing it computes draws
+    random numbers, so no RNG state is stashed); without autograd, a plain
+    call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                       preserve_rng_state=False)
 
 
 def _truncated_normal(gen, shape, scale, dtype, device) -> torch.Tensor:

@@ -8,21 +8,26 @@ becomes a Python loop over that axis.  A tree from the JAX package carries
 across leaf by leaf (``registry.params_from_numpy``).  The vocabulary is
 padded to a multiple of 128, as there.
 
-Serving only: ``prefill`` and ``decode_step`` run under
+Training: ``lm_loss`` and ``chunked_ce_loss`` run under autograd, and each
+``jax.checkpoint`` of the JAX package is ``layers.checkpoint`` here
+(``torch.utils.checkpoint`` without reentry): the layer body when
+``cfg.remat``, and each cross-entropy chunk.  ``forward_hidden`` unbinds
+the stacked leaves once (``unstack``), so the backward pass stacks each
+leaf's gradient once.  Serving: ``prefill`` and ``decode_step`` run under
 ``torch.inference_mode()``, and ``decode_step`` writes the token's keys
 and values into the cache's buffers in place (the JAX engine donates the
-cache).  Training (``lm_loss``, ``chunked_ce_loss``, remat of the blocks)
-comes with ROADMAP queue A, item A8c; the ``moe``, ``ssm``, ``hybrid``,
-``vlm`` and ``audio`` families with item A8b, and until then every entry
-point raises ``NotImplementedError`` for them.
+cache).  The ``moe``, ``ssm``, ``hybrid``, ``vlm`` and ``audio`` families
+come with ROADMAP queue A, item A8b, and until then every entry point
+raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (apply_norm, dense_init, dtype_of,
-                                       embed_init, norm_param, swiglu)
+from repro_torch.models.layers import (apply_norm, checkpoint, dense_init,
+                                       dtype_of, embed_init, norm_param,
+                                       swiglu)
 
 _FAMILIES = ("dense",)
 
@@ -73,6 +78,15 @@ def layer(layers, i: int):
             for k, v in layers.items()}
 
 
+def unstack(layers, n: int) -> list:
+    """The stacked tree as ``n`` per-layer trees, one ``unbind`` per leaf:
+    its backward pass stacks the layers' gradients once, where a view per
+    layer (``layer``) would allocate the whole stacked shape for each."""
+    parts = {k: unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+             for k, v in layers.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 def init_lm(cfg, gen, *, device):
     """Random parameters from ``gen`` (a ``torch.Generator`` on ``device``;
     ``None`` with ``device="meta"`` for the shapes alone)."""
@@ -120,9 +134,13 @@ def forward_hidden(params, cfg, x, collect_caches=False):
     """
     check_family(cfg)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, _, kv = _attn_block_train(layer(params["layers"], i), x, cfg,
-                                     collect_kv=collect_caches)
+    for lp in unstack(params["layers"], cfg.n_layers):
+        if cfg.remat:
+            x, _, kv = checkpoint(_attn_block_train, lp, x, cfg,
+                                  collect_caches)
+        else:
+            x, _, kv = _attn_block_train(lp, x, cfg,
+                                         collect_kv=collect_caches)
         if collect_caches:
             ks.append(kv[0])
             vs.append(kv[1])
@@ -138,6 +156,49 @@ def logits_fn(params, cfg, hidden):
     h = apply_norm(hidden, params["final_norm"], cfg.norm_type)
     w = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ w
+
+
+def chunked_ce_loss(params, cfg, hidden, labels, mask, chunk: int = 512):
+    """Cross-entropy over the (padded) vocab, a loop over sequence chunks so
+    the [B, S, V] logits tensor never fully materializes: each chunk is
+    checkpointed, so the backward pass recomputes its logits too."""
+    B, S, D = hidden.shape
+    chunk = min(chunk, S)
+    n = S // chunk
+    rem = S - n * chunk
+
+    def one(h_blk, y_blk, m_blk):
+        logits = logits_fn(params, cfg, h_blk).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y_blk[..., None].long())[..., 0]
+        return torch.sum((lse - gold) * m_blk), torch.sum(m_blk)
+
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n)]
+    if rem:
+        bounds.append((n * chunk, S))
+    for lo, hi in bounds:
+        s, c = checkpoint(one, hidden[:, lo:hi], labels[:, lo:hi],
+                          mask[:, lo:hi])
+        tot, cnt = tot + s, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(params, cfg, batch):
+    """Next-token cross-entropy of ``batch["tokens"]`` [B, S] (the last
+    position predicts nothing) and the aux dict (empty for the dense
+    family)."""
+    check_family(cfg)
+    tokens = batch["tokens"]
+    x = embed_tokens(params, cfg, tokens)
+    hidden, aux, _ = forward_hidden(params, cfg, x)
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32,
+                      device=tokens.device)
+    mask[:, -1] = 0.0
+    loss = chunked_ce_loss(params, cfg, hidden, labels, mask)
+    return loss, aux
 
 
 # --------------------------------------------------------------------------

@@ -1,11 +1,11 @@
-"""Model registry: a uniform (init / prefill / decode / batch) API over the
-architectures, the serving half of the JAX package's ``models/registry.py``.
+"""Model registry: a uniform (init / loss / prefill / decode / batch) API
+over the architectures, the JAX package's ``models/registry.py``.
 
 ``params_from_numpy`` carries a parameter tree across from the JAX package
 (handed over as numpy arrays), leaf by leaf: the LM's counterpart of
-``UnifiedIndex.from_numpy``.  ``loss_fn``, ``input_specs``,
-``cache_specs`` and ``param_specs_tree`` come with training and the
-analysis tools (ROADMAP queue A, items A8c and A8e).
+``UnifiedIndex.from_numpy``.  ``input_specs``, ``cache_specs`` and
+``param_specs_tree`` come with the analysis tools (ROADMAP queue A, item
+A8e).
 """
 from __future__ import annotations
 
@@ -26,6 +26,12 @@ def init_params(cfg, gen, *, device=None):
     ``device`` (the card unless ``device="cpu"``)."""
     lm.check_family(cfg)          # audio (enc-dec) included
     return lm.init_lm(cfg, gen, device=resolve_device(device))
+
+
+def loss_fn(cfg):
+    """``(params, batch) -> (loss, aux)``, differentiable in ``params``."""
+    lm.check_family(cfg)
+    return lambda params, batch: lm.lm_loss(params, cfg, batch)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device=None):
@@ -67,7 +73,9 @@ def leaves(tree, prefix="") -> dict:
     return out
 
 
-def _tensor(a, dtype, device) -> torch.Tensor:
+def to_tensor(a, dtype, device) -> torch.Tensor:
+    """A numpy array (ml_dtypes' bfloat16 included, bit for bit) as a
+    tensor of ``dtype`` on ``device``."""
     a = np.array(a, order="C")           # a copy the tensor may own
     if a.dtype.name == "bfloat16":         # ml_dtypes' bfloat16, bit for bit
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
@@ -98,6 +106,6 @@ def params_from_numpy(tree, cfg, *, device=None, dtype=None):
 
     def build(node):
         return {k: build(v) if isinstance(v, dict)
-                else _tensor(v, dtype, device) for k, v in node.items()}
+                else to_tensor(v, dtype, device) for k, v in node.items()}
 
     return build(tree)

@@ -1155,6 +1155,80 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
+def test_train_step_on_card_equals_cpu(cuda, monkeypatch):
+    """A reduced f32 train step (TF32 off) of each dense arch on the card
+    against the CPU port: the loss within 1e-5, every gradient leaf within
+    1e-5 of its largest magnitude (the bounds of
+    tests/test_torch_train.py), ``grad_accum`` 2 included; the step
+    updates the state on the card in place."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import registry
+    from repro_torch.train.step import (grads_of, make_train_state,
+                                        make_train_step)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for arch in ("smollm-360m", "yi-6b", "olmo-1b", "minitron-8b"):
+        for accum in (1, 2):
+            cfg = reduced(get_config(arch)).replace(grad_accum=accum)
+            cpu = make_train_state(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu")
+            card = _to(cpu, cuda)
+            tokens = torch.randint(0, cfg.vocab, (4, 64), dtype=torch.int32,
+                                   generator=torch.Generator().manual_seed(1))
+            loss = registry.loss_fn(cfg)
+            (l_cpu, _), g_cpu = grads_of(loss, cpu["params"],
+                                         {"tokens": tokens})
+            (l_card, _), g_card = grads_of(loss, card["params"],
+                                           {"tokens": tokens.to(cuda)})
+            assert abs(float(l_card) - float(l_cpu)) <= 1e-5, arch
+            g_card = registry.leaves(g_card)
+            for k, w in registry.leaves(g_cpu).items():
+                assert g_card[k].is_cuda
+                np.testing.assert_allclose(
+                    g_card[k].cpu().numpy(), w.numpy(), rtol=0,
+                    atol=1e-5 * float(w.abs().max()), err_msg=f"{arch} {k}")
+            _, m_cpu = make_train_step(cfg)(cpu, {"tokens": tokens})
+            params = card["params"]["tok_embed"]
+            out, m_card = make_train_step(cfg)(card, {"tokens": tokens})
+            assert out["params"]["tok_embed"] is params and params.is_cuda
+            assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= 1e-5
+            assert int(out["opt"]["step"]) == 1
+
+
+@pytest.mark.parametrize("task", ["negative_examples", "imputation",
+                                  "multi_objective", "union_via_counter",
+                                  "correlation_vs_qcr",
+                                  "discovery_fed_pipeline"])
+def test_system_task_on_card_equals_cpu(cuda, task):
+    """tests/test_system.py's six tasks (``tests/system_tasks.py``) through
+    the port on the card, both backends, equal to the CPU port: ids,
+    baselines, tokens and batches."""
+    import types
+
+    import system_tasks
+    from repro_torch.core import baselines, lake, plan
+    from repro_torch.data import pipeline
+
+    def ns(backend, device):
+        return types.SimpleNamespace(
+            lake=lake, build_index=build_index, Plan=plan.Plan,
+            Seekers=plan.Seekers, Combiners=plan.Combiners,
+            baselines=baselines, pipeline=pipeline,
+            executor=lambda idx: Executor(idx, backend=backend,
+                                          device=device))
+
+    want = system_tasks.TASKS[task](ns("sorted", "cpu"))
+    for backend in ("sorted", "bucket"):
+        got = system_tasks.TASKS[task](ns(backend, cuda))
+        assert got["ids"] == want["ids"], backend
+        for key in ("mate", "josie", "qcr", "ids_unoptimized"):
+            if key in want:
+                assert got[key] == want[key], (backend, key)
+        if "tokens" in want:
+            np.testing.assert_array_equal(got["tokens"], want["tokens"])
+            for a, b in zip(got["batches"], want["batches"]):
+                np.testing.assert_array_equal(a, b)
+
+
 # ------------------------------------------------------- the sharded lake
 
 def _same_result(got, want, ctx=""):
